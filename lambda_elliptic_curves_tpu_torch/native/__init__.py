@@ -1,0 +1,130 @@
+"""Native libraries of the port, built at first use into ``build/``.
+
+* the host Keccak-256 (transcripts, Merkle path checks): the JAX
+  package's C source ``lambda_elliptic_curves_tpu/native/keccak.c``,
+  compiled by path with ``cc`` (the source is read, never imported: that
+  package's ``__init__`` imports jax);
+* the CUDA kernels ``csrc/*.cu``: one shared library with a plain C
+  interface, compiled with ``nvcc`` for ``sm_90a`` and loaded with ctypes.
+
+Each library's file name carries a hash of its sources and flags, so an
+edited source is never served by a stale build, and concurrent builds
+write to a private file and rename it into place.
+
+Every kernel launch goes through :func:`launch`, which raises when the C
+entry reports a CUDA error and counts the launch in :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG, "build")
+CSRC_DIR = os.path.join(_PKG, "csrc")
+HOST_KECCAK_SRC = os.path.join(os.path.dirname(_PKG), "lambda_elliptic_curves_tpu",
+                               "native", "keccak.c")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+#: kernel name -> launches since the last reset (``launches.clear()``)
+launches: dict = {"field": 0, "ntt": 0, "keccak": 0}
+
+_lock = threading.Lock()
+_host = None
+_cuda = None
+
+
+def _tagged_path(stem: str, sources: list, flags: list) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+
+
+def _compile(cmd_prefix: list, out: str, sources: list) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    r = subprocess.run(cmd_prefix + ["-o", tmp] + sources,
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"{cmd_prefix[0]} failed:\n{r.stdout}\n{r.stderr}")
+    os.replace(tmp, out)
+
+
+def host_keccak():
+    """ctypes handle of the host Keccak-256 library (built on first use)."""
+    global _host
+    with _lock:
+        if _host is None:
+            flags = ["cc", "-O2", "-shared", "-fPIC"]
+            so = _tagged_path("libkeccak_host", [HOST_KECCAK_SRC], flags)
+            if not os.path.exists(so):
+                _compile(flags, so, [HOST_KECCAK_SRC])
+            lib = ctypes.CDLL(so)
+            lib.lw_keccak256.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                         ctypes.c_char_p]
+            lib.lw_keccak256.restype = None
+            _host = lib
+        return _host
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def cuda_sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def cuda_lib():
+    """ctypes handle of the CUDA kernel library (built on first use)."""
+    global _cuda
+    with _lock:
+        if _cuda is None:
+            srcs = cuda_sources()
+            headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+            so = _tagged_path("liblwt_cuda", srcs + headers, NVCC_FLAGS)
+            if not os.path.exists(so):
+                _compile([_nvcc()] + NVCC_FLAGS, so, srcs)
+            lib = ctypes.CDLL(so)
+            P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+            sigs = {
+                "lw_field_op": [I, P, L, L, P, L, L, P, L, P],
+                "lw_field_pow": [P, L, L, P, L, P, I, P],
+                "lw_ntt": [P, P, P, L, I, P],
+                "lw_keccak_f": [P, P, L, P],
+                "lw_keccak256_words": [P, I, L, I, P, P],
+            }
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _cuda = lib
+        return _cuda
+
+
+def launch(kernel: str, entry: str, *args) -> None:
+    """Call C entry ``entry`` of the CUDA library with ``args`` (the stream
+    is appended), raise on a CUDA error, count one launch of ``kernel``."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(cuda_lib(), entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+    launches[kernel] += 1

@@ -1,0 +1,145 @@
+"""The port's CUDA kernels held against their plain PyTorch versions on an
+NVIDIA card.  Every test here carries the ``cuda`` marker and skips
+without a card.  The file imports no JAX, so that it runs on a machine
+without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` sets up the JAX CPU platform.)
+Inputs come from ``numpy.random.default_rng``.  Tolerance: bitwise
+equality (field values and digests are exact).
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from lambda_elliptic_curves_tpu_torch import native
+from lambda_elliptic_curves_tpu_torch.fields import Stark252
+from lambda_elliptic_curves_tpu_torch.fiat_shamir import DefaultTranscript
+from lambda_elliptic_curves_tpu_torch.hashes import keccak
+from lambda_elliptic_curves_tpu_torch.merkle import KeccakBatchBackend, MerkleTree
+from lambda_elliptic_curves_tpu_torch.ops import limbs
+from lambda_elliptic_curves_tpu_torch.poly import ntt
+from lambda_elliptic_curves_tpu_torch.provers.stark import ProofOptions, prove, verify
+from lambda_elliptic_curves_tpu_torch.provers.stark.examples.fibonacci import (
+    FibonacciPublicInputs, fibonacci_air_for, fibonacci_trace,
+)
+from lambda_elliptic_curves_tpu_torch.utils.serialization import serialize_proof
+
+pytestmark = pytest.mark.cuda
+
+P = Stark252.p
+FIXTURES = pathlib.Path(__file__).parent / "fixtures"
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ints(seed, n, zeros=0):
+    rng = np.random.default_rng(seed)
+    edge = [0, 1, P - 1, P - 2, (1 << 255) % P, (1 << 256) % P]
+    return [0] * zeros + edge + [int.from_bytes(rng.bytes(32), "little") % P
+                                 for _ in range(n)]
+
+
+def _words(seed, shape) -> torch.Tensor:
+    w = np.random.default_rng(seed).integers(0, 1 << 32, shape, dtype=np.uint32)
+    return torch.from_numpy(w.view(np.int32))
+
+
+def _on_card(fn, *args):
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out.cpu()
+
+
+_FIELD_CASES = {
+    "add": (Stark252.add, limbs.add_plain),
+    "sub": (Stark252.sub, limbs.sub_plain),
+    "mul": (Stark252.mul, limbs.mont_mul_plain),
+    "square": (lambda x, y: Stark252.square(x), lambda x, y: limbs.square_plain(x)),
+    "neg": (lambda x, y: Stark252.neg(x), lambda x, y: limbs.neg_plain(x)),
+    "inv": (lambda x, y: Stark252.batch_inverse(x),
+            lambda x, y: limbs.batch_inverse_plain(x)),
+    "pow": (lambda x, y: Stark252.pow(x, 2**70 + 11),
+            lambda x, y: limbs.mont_pow_plain(x, 2**70 + 11)),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_FIELD_CASES))
+def test_field_kernel_matches_plain(dev, op):
+    vals = _ints(7, 4090, zeros=4)
+    a, b = Stark252.array(vals, "cpu"), Stark252.array(vals[::-1], "cpu")
+    kernel, plain = _FIELD_CASES[op]
+    assert torch.equal(_on_card(kernel, a.to(dev), b.to(dev)), plain(a, b))
+
+
+def test_field_kernel_broadcast_operand(dev):
+    """One value over the batch is read with element stride 0."""
+    a = Stark252.array(_ints(8, 100), "cpu").reshape(8, 2, 53)
+    c = Stark252.constant(12345, (1, 1), "cpu")
+    assert torch.equal(_on_card(Stark252.mul, a.to(dev), c.to(dev)),
+                       limbs.mont_mul_plain(a, c))
+
+
+def test_local_ntt_kernel_matches_plain(dev):
+    for log_n in range(1, 12):
+        n = 1 << log_n
+        x = Stark252.array(_ints(log_n, 4 * n - 6), "cpu").reshape(8, 4, n)
+        root = Stark252.params.primitive_root_of_unity(log_n)
+        assert torch.equal(_on_card(ntt.local_ntt, x.to(dev), Stark252, root),
+                           ntt.local_ntt(x, Stark252, root)), n
+
+
+def test_four_step_fft_on_card_matches_cpu(dev):
+    x = Stark252.array(_ints(99, (1 << 13) - 6), "cpu")
+    got = _on_card(ntt.fft, x.to(dev), Stark252)
+    assert torch.equal(got, ntt.fft(x, Stark252))
+    assert torch.equal(_on_card(ntt.ifft, got.to(dev), Stark252), x)
+
+
+def test_keccak_kernels_match_plain(dev):
+    st = _words(4, (25, 2, 1000))
+    assert torch.equal(_on_card(keccak.keccak_f, st.to(dev)), keccak.keccak_f_plain(st))
+    for msg_bytes in (32, 64, 96, 200):
+        words = _words(msg_bytes, (msg_bytes // 4, 1000))
+        assert torch.equal(_on_card(keccak.keccak256_words, words.to(dev), msg_bytes),
+                           keccak.keccak256_words_plain(words, msg_bytes))
+
+
+def test_merkle_tree_on_card_matches_cpu(dev):
+    vals = np.array(_ints(6, 2994), dtype=object).reshape(3, 1000).tolist()
+    backend = KeccakBatchBackend(Stark252)
+    cpu_tree = MerkleTree.build(backend, Stark252.array(vals, "cpu"))
+    card_tree = MerkleTree.build(backend, Stark252.array(vals, dev))
+    assert card_tree.root == cpu_tree.root
+    assert card_tree.gather_proofs([0, 5, 999]) == cpu_tree.gather_proofs([0, 5, 999])
+
+
+def test_every_kernel_counts_its_launches(dev):
+    native.launches.update({k: 0 for k in native.launches})
+    x = Stark252.array(_ints(9, 58), "cpu").to(dev)
+    Stark252.mul(x, x)
+    ntt.fft(x, Stark252)
+    keccak.keccak256_words(_words(1, (8, 64)).to(dev), 32)
+    torch.cuda.synchronize()
+    assert native.launches["keccak"] == 1
+    assert native.launches["ntt"] == 1
+    assert native.launches["field"] >= 1
+
+
+def test_proof_on_card_equals_jax_fixture(dev):
+    rows = 1 << 10
+    air, pub, opts = fibonacci_air_for(Stark252), FibonacciPublicInputs(1, 1), \
+        ProofOptions(4, 32, 3, 0)
+    proof = prove(air, fibonacci_trace(Stark252, [1, 1], rows, dev), pub, opts,
+                  DefaultTranscript(Stark252), device=dev)
+    assert serialize_proof(proof) == (FIXTURES / "jax_fib_1024_proof.json").read_bytes()
+    assert verify(air, proof, pub, opts, DefaultTranscript(Stark252))
