@@ -9,7 +9,11 @@ Fibonacci STARK prover end to end.
 Phases (one result line each, with its seconds):
   1. card name and power limit (nvidia-smi); kernel build
   2. every kernel against its plain version on the card (bitwise), host-int
-     spot checks, and kernel / plain timings at the prover's shapes
+     spot checks, and kernel / plain timings at the prover's shapes; 2b2
+     holds batch inversion against its plain version at the prover's
+     shapes ((8, 2, N) and (8, 4, N) for N = 2^18 and 2^22), ragged sizes
+     and a 3-D batch, with zeros, and times it in turns against Fermat
+     (a^(p-2)) at 2^18, 2^20, 2^23 and 2^24 elements
   3. Fibonacci 2^10 rows, ProofOptions(4, 32, 3, 0): serialized proof
      byte-equal to the JAX package's checked-in proof; verify accepts it and
      rejects it with fri_last_value + 1
@@ -17,8 +21,16 @@ Phases (one result line each, with its seconds):
      prove, a timed prove (kernel launch counts reset just before it) and
      verify
   5. prove + verify at 2^20 rows: a first prove (it builds the twiddle
-     tables of the new sizes), then a timed prove and verify
-  6. launch count of each kernel during phase 4's timed prove (each > 0)
+     tables of the new sizes), then a timed prove (launch counts reset just
+     before it) and verify
+  6. launch count of each kernel during the timed proves of phases 4 and 5
+     (each > 0, and none of the Fermat kernel ``field_pow``)
+  7. a torch.profiler trace of one warm prove at 2^16 and at 2^20 rows:
+     device busy time, idle share, time and launches by kernel
+
+Each kernel's ``bound_ms`` is the larger of its bytes (inputs read once,
+outputs written once) over the card's memory rate and its 32-bit integer
+operations over the card's integer rate (see ``bound``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits
@@ -28,6 +40,7 @@ non-zero without that line.  Exits non-zero at once without a CUDA card.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,7 +57,25 @@ KERNELS = {
                "replaces": "lambda_elliptic_curves_tpu/hashes/keccak_pallas.py:109"},
     "field": {"source": f"{CSRC}/field.cu",
               "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:750"},
+    "field_inv": {"source": f"{CSRC}/batch_inverse.cu",
+                  "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:895"},
 }
+
+# The card's peak rates (NVIDIA's H100 SXM data sheet and the CUDA
+# programming guide's throughput table for compute capability 9.0): device
+# memory 3.35 TB/s; 64 32-bit integer multiply-adds (and other integer
+# instructions) per clock per SM, at the card's maximum SM clock.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_CLOCK_PER_SM = 64
+# 32-bit integer instructions per operation, estimated from the sources:
+# a CIOS Montgomery product (mont.cuh): 64 widening products of a*b, 24 of
+# m*p (p's five zero limbs fold away), carry adds and the final
+# conditional subtraction; an add or sub with its reduction; a keccak-f
+# permutation with 3-input logic ops and funnel shifts (per round: theta
+# 90, rho 48, chi 50, iota 2; 24 rounds).
+MONT_MUL_OPS = 170
+ADD_OPS = 24
+KECCAK_F_OPS = 24 * 190
 
 
 class SmokeError(RuntimeError):
@@ -91,16 +122,41 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def bound(state, nbytes: float, ops: float):
+    """(least ms, what bounds it) for moving ``nbytes`` through device memory
+    and doing ``ops`` 32-bit integer instructions on this card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / state["int_ops_per_s"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def inv_bound(state, a):
+    """Montgomery's trick: 3 products per nonzero element; 32 B read and 32 B
+    written per element."""
+    n = a[0].numel()
+    nonzero = int((a != 0).any(dim=0).sum().item())
+    return bound(state, 64.0 * n, 3.0 * MONT_MUL_OPS * nonzero)
+
+
+def _smi(query: str) -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0] if r.stdout.strip() else "unknown"
+
+
 # ---------------------------------------------------------------------------
 
 def phase_build(state):
+    import torch
     from lambda_elliptic_curves_tpu_torch import native
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    state["smi"] = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
+    state["smi"] = _smi("name,power.limit")
     print(state["smi"], flush=True)
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    state["int_ops_per_s"] = sms * INT_OPS_PER_CLOCK_PER_SM * clock_mhz * 1e6
+    print(f"{sms} SMs at {clock_mhz:.0f} MHz: {state['int_ops_per_s']:.4g} integer "
+          f"ops/s; memory {HBM_BYTES_PER_S:.4g} B/s", flush=True)
 
     @phase("1 build")
     def run():
@@ -113,16 +169,16 @@ def phase_build(state):
 
 
 def _random_field(n: int, gen, dev):
-    """(8, n) canonical values below 2^251 < p, with edge values first."""
+    """(8, n) canonical values below 2^251 < p, drawn on the card from the
+    CUDA generator ``gen``, with edge values first."""
     import torch
     from lambda_elliptic_curves_tpu_torch.fields import Stark252 as f
 
-    x = torch.randint(-2**31, 2**31, (8, n), generator=gen, dtype=torch.int64)
+    x = torch.randint(-2**31, 2**31, (8, n), generator=gen, device=dev, dtype=torch.int64)
     x = x.to(torch.int32)
     x[7] &= 0x07FFFFFF
-    edge = f.array([0, 1, f.p - 1, f.p - 2], "cpu")
-    x[:, :4] = edge
-    return x.to(dev)
+    x[:, :4] = f.array([0, 1, f.p - 1, f.p - 2], dev)[:, :n]
+    return x
 
 
 def phase_kernels(state):
@@ -134,13 +190,13 @@ def phase_kernels(state):
     from lambda_elliptic_curves_tpu_torch.poly import ntt
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
     rec = state["kernels"]
 
     @phase("2a keccak")
     def run_keccak():
-        st = torch.randint(-2**31, 2**31, (25, 2, 1 << 16), generator=gen,
-                           dtype=torch.int64).to(torch.int32).to(dev)
+        st = torch.randint(-2**31, 2**31, (25, 2, 1 << 16), generator=gen, device=dev,
+                           dtype=torch.int64).to(torch.int32)
         err = max_abs_err(keccak.keccak_f(st), keccak.keccak_f_plain(st))
         check(err == 0, "keccak_f kernel != plain")
         host = st[:, :, :8].cpu().numpy().view(np.uint32)
@@ -153,7 +209,7 @@ def phase_kernels(state):
         times = {}
         for nbytes in (32, 64):
             words = torch.randint(-2**31, 2**31, (nbytes // 4, 1 << 18), generator=gen,
-                                  dtype=torch.int64).to(torch.int32).to(dev)
+                                  device=dev, dtype=torch.int64).to(torch.int32)
             got = keccak.keccak256_words(words, nbytes)
             err = max(err, max_abs_err(got, keccak.keccak256_words_plain(words, nbytes)))
             check(err == 0, f"keccak256_words kernel != plain at {nbytes} B")
@@ -164,21 +220,23 @@ def phase_kernels(state):
             times[nbytes] = (cuda_ms(lambda: keccak.keccak256_words(words, nbytes), 20),
                              cuda_ms(lambda: keccak.keccak256_words_plain(words, nbytes), 2))
         ms, plain_ms = times[64]
-        rec["keccak"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        # one permutation per message; 64 B read and a 32 B digest written
+        bound_ms, bound_by = bound(state, 96.0 * (1 << 18), KECCAK_F_OPS * (1 << 18))
+        rec["keccak"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None,
                              shape="keccak256_words, 2^18 messages of 64 B")
         return ("keccak_f 2^16 states and keccak256_words 2^18 x {32,64} B bitwise equal; "
                 + ", ".join(f"{b} B: kernel {t[0]:.4f} ms plain {t[1]:.3f} ms"
                             for b, t in times.items()))
     run_keccak()
 
-    @phase("2b field")
+    @phase("2b1 field ops")
     def run_field():
         n = 1 << 20
         a, b = _random_field(n, gen, dev), _random_field(n, gen, dev).flip(1)
         err = 0
         pairs = [(f.add(a, b), limbs.add_plain(a, b)), (f.sub(a, b), limbs.sub_plain(a, b)),
-                 (f.mul(a, b), limbs.mont_mul_plain(a, b)),
-                 (f.batch_inverse(a), limbs.batch_inverse_plain(a))]
+                 (f.mul(a, b), limbs.mont_mul_plain(a, b))]
         for got, want in pairs:
             err = max(err, max_abs_err(got, want))
         check(err == 0, "field kernel != plain")
@@ -190,24 +248,87 @@ def phase_kernels(state):
             "add": [(x + y) % f.p for x, y in zip(av, bv)],
             "sub": [(x - y) % f.p for x, y in zip(av, bv)],
             "mul": [x * y * r_inv % f.p for x, y in zip(av, bv)],
-            "inv": [0 if x == 0 else pow(x * r_inv, -1, f.p) * 2**256 % f.p for x in av],
         }
         for (got, _), name in zip(pairs, host):
             check([int(v) for v in limbs.limbs_to_ints(got[:, idx])] == host[name],
                   f"field {name} kernel != host ints")
         m = 1 << 18
         a2, b2 = a[:, :m].contiguous(), b[:, :m].contiguous()
-        ms = cuda_ms(lambda: f.mul(a2, b2), 50)
-        plain_ms = cuda_ms(lambda: limbs.mont_mul_plain(a2, b2), 3)
-        inv_ms = cuda_ms(lambda: f.batch_inverse(a2), 5)
-        inv_plain_ms = cuda_ms(lambda: limbs.batch_inverse_plain(a2), 2)
-        rec["field"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            shape="mul, 2^18 elements")
-        state["field_extra"] = {"inv_2^18_ms": inv_ms, "inv_2^18_plain_ms": inv_plain_ms}
-        return (f"add/sub/mul/inv on 2^20 bitwise equal, 64 host spot checks; mul 2^18: "
-                f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms; batch_inverse 2^18: kernel "
-                f"{inv_ms:.3f} ms plain {inv_plain_ms:.3f} ms")
+        mul_18_ms = cuda_ms(lambda: f.mul(a2, b2), 50)
+        # the kernels line's shape: 2^22 elements, an LDE column at 2^20 rows,
+        # where the device time and not the launch dominates
+        a4, b4 = _random_field(1 << 22, gen, dev), _random_field(1 << 22, gen, dev)
+        ms = cuda_ms(lambda: f.mul(a4, b4), 20)
+        plain_ms = cuda_ms(lambda: limbs.mont_mul_plain(a4, b4), 2)
+        bound_ms, bound_by = bound(state, 96.0 * (1 << 22), MONT_MUL_OPS * (1 << 22))
+        rec["field"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None, shape="mul, 2^22 elements")
+        state["field_extra"] = {"mul_2^18_ms": mul_18_ms}
+        return (f"add/sub/mul on 2^20 bitwise equal, 64 host spot checks; mul 2^18: "
+                f"kernel {mul_18_ms:.4f} ms; mul 2^22: kernel {ms:.4f} ms plain "
+                f"{plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by})")
     run_field()
+
+    @phase("2b2 batch inverse")
+    def run_inverse():
+        # the prover's shapes, boundary terms (8, 2, N) and DEEP (8, 4, N)
+        # with N the LDE size (2^18 at 2^16 rows, 2^22 at 2^20 rows), then
+        # ragged sizes and a 3-D batch, so that every chunk length the kernel
+        # picks (16 to 256) is held against the plain version; zeros
+        # scattered, in a run, first and last
+        shapes = [(2, 1 << 18), (4, 1 << 18), (2, 1 << 22), (4, 1 << 22),
+                  ((1 << 22) + 5,), ((1 << 20) - 3,), (3, 5, 7001)]
+        err = 0
+        for shape in shapes:
+            n = math.prod(shape)
+            flat = _random_field(n, gen, dev)
+            flat[:, ::997] = 0
+            flat[:, 5000:5300] = 0
+            flat[:, -1] = 0
+            a = flat.reshape((8,) + shape)
+            got = f.batch_inverse(a)
+            err = max(err, max_abs_err(got, limbs.batch_inverse_plain(a)))
+            check(err == 0, f"batch inverse kernel != plain at {shape}")
+            idx = torch.cat([torch.arange(0, n, n // 61)[:62],
+                             torch.tensor([n - 2, n - 1])]).to(dev)
+            av = [int(v) for v in f.to_ints(flat[:, idx])]
+            check([int(v) for v in f.to_ints(got.reshape(8, n)[:, idx])]
+                  == [0 if x == 0 else pow(x, -1, f.p) for x in av],
+                  f"batch inverse kernel != host ints at {shape}")
+            check(av.count(0) >= 2, "the spot checks hold no zero")
+            del flat, a, got
+        torch.cuda.empty_cache()
+
+        # kernel and Fermat (a^(p-2), the route the card took before) in
+        # turns: kernel, Fermat, Fermat, kernel
+        times, xs = {}, {}
+        for log_n in (18, 20, 23, 24):
+            x = xs[log_n] = _random_field(1 << log_n, gen, dev)
+            reps_k, reps_f = (20, 3) if log_n <= 20 else (5, 1)
+            kern = lambda: f.batch_inverse(x)  # noqa: E731
+            ferm = lambda: limbs.mont_pow(x, f.p - 2)  # noqa: E731
+            k1, f1, f2, k2 = (cuda_ms(kern, reps_k), cuda_ms(ferm, reps_f),
+                              cuda_ms(ferm, reps_f), cuda_ms(kern, reps_k))
+            check(torch.equal(kern(), ferm()), f"batch inverse != Fermat at 2^{log_n}")
+            b_ms, b_by = inv_bound(state, x)
+            # Fermat: 252 squarings and 194 multiplies per element
+            fb_ms, fb_by = bound(state, 64.0 * x.shape[1], 446.0 * MONT_MUL_OPS * x.shape[1])
+            times[log_n] = {"kernel_ms": [k1, k2], "fermat_ms": [f1, f2], "bound_ms": b_ms,
+                            "bound_by": b_by, "fermat_bound_ms": fb_ms, "fermat_bound_by": fb_by,
+                            "speedup": (f1 + f2) / (k1 + k2)}
+        ms = sum(times[20]["kernel_ms"]) / 2
+        plain_ms = cuda_ms(lambda: limbs.batch_inverse_plain(xs[20]), 1)
+        rec["field_inv"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=times[20]["bound_ms"], bound_by=times[20]["bound_by"],
+                                library_ms=None, shape="batch_inverse, 2^20 elements")
+        state["inv_times"] = times
+        return (f"{len(shapes)} shapes bitwise equal to plain ("
+                + ", ".join(str(s) for s in shapes) + "), 64 host spot checks each; "
+                + ", ".join(
+                    f"2^{k}: kernel {t['kernel_ms'][0]:.4f}/{t['kernel_ms'][1]:.4f} ms, Fermat "
+                    f"{t['fermat_ms'][0]:.3f}/{t['fermat_ms'][1]:.3f} ms ({t['speedup']:.1f}x), "
+                    f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})" for k, t in times.items()))
+    run_inverse()
 
     @phase("2c local ntt")
     def run_local():
@@ -237,7 +358,13 @@ def phase_kernels(state):
             times[log_n] = (cuda_ms(lambda: ntt.fft(x, f), 10 if log_n < 22 else 5),
                             cuda_ms(lambda: ntt.fft_with_root_plain(x, f, root), 1))
         ms, plain_ms = times[18]
-        rec["ntt"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        # (n / 2) log2 n butterflies of one product, one add and one sub;
+        # 32 B read and 32 B written per point
+        n = 1 << 18
+        bound_ms, bound_by = bound(state, 64.0 * n,
+                                   n // 2 * 18 * (MONT_MUL_OPS + 2 * ADD_OPS))
+        rec["ntt"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None,
                           shape="fft 2^18 (four-step over 2^9-point local kernels)")
         state["fft_times"] = times
         return "fft 2^14/16/18/22 equal to plain, ifft round trip; " + ", ".join(
@@ -344,6 +471,7 @@ def phase_bench(state):
 
 def phase_big(state):
     import torch
+    from lambda_elliptic_curves_tpu_torch import native
     from lambda_elliptic_curves_tpu_torch.provers.stark import ProofOptions
     from lambda_elliptic_curves_tpu_torch.provers.stark import prover as prover_mod
 
@@ -353,7 +481,10 @@ def phase_big(state):
         _, first_ms, ok = _prove_verify(1 << 20, dev, opts)  # builds the twiddle tables
         check(ok, "verify rejected the first 2^20 proof")
         torch.cuda.reset_peak_memory_stats()
+        for name in native.launches:
+            native.launches[name] = 0
         proof, ms, ok = _prove_verify(1 << 20, dev, opts)
+        state["launches_20"] = dict(native.launches)
         check(ok, "verify rejected the 2^20 proof")
         phases = {k: round(v * 1000.0, 3) for k, v in prover_mod.last_timings.items()}
         state["prove_20"] = {"ms": ms, "first_ms": first_ms, "phases_ms": phases}
@@ -367,11 +498,71 @@ def phase_big(state):
 def phase_launches(state):
     @phase("6 launch counts")
     def run():
-        counts = state["launches"]
+        for rows, counts in (("2^16", state["launches"]), ("2^20", state["launches_20"])):
+            for name in KERNELS:
+                check(counts.get(name, 0) > 0,
+                      f"kernel {name} was not launched by the {rows}-row prove")
+            check(counts.get("field_pow", 0) == 0, f"the {rows}-row prove inverted by Fermat "
+                  "(field_pow) instead of the batch-inverse kernel")
         for name in KERNELS:
-            check(counts.get(name, 0) > 0, f"kernel {name} was not launched by the prover")
-            state["kernels"][name]["launches"] = counts[name]
-        return json.dumps(counts)
+            state["kernels"][name]["launches"] = state["launches"][name]
+        return json.dumps({"2^16": state["launches"], "2^20": state["launches_20"]})
+    run()
+
+
+def _profile_prove(rows: int) -> dict:
+    """Device time of one warm prove from a torch.profiler trace: busy time
+    (the union of kernel and copy intervals on the card), idle share of the
+    wall time, and time and launches by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lambda_elliptic_curves_tpu_torch.fields import Stark252 as f
+    from lambda_elliptic_curves_tpu_torch.fiat_shamir import DefaultTranscript
+    from lambda_elliptic_curves_tpu_torch.provers.stark import ProofOptions, prove, verify
+
+    dev, opts = torch.device("cuda"), ProofOptions(4, 32, 3, 0)
+    _prove_verify(rows, dev, opts)  # warm
+    air, trace, pub = _fib(rows, dev)
+    torch.cuda.synchronize()
+    # the window holds the prove alone: not the trace's upload, not verify
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        proof = prove(air, trace, pub, opts, DefaultTranscript(f), device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    check(verify(air, proof, pub, opts, DefaultTranscript(f)),
+          f"verify rejected the profiled 2^{rows.bit_length() - 1} proof")
+    spans, by_kernel = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        name = e.name.split("(")[0].split("<")[0].replace("void ", "").strip()
+        ms, count = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (ms + (end - start) / 1e3, count + 1)
+    busy, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    busy_ms = busy / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "by_kernel": {k: {"ms": round(v[0], 4), "launches": v[1]} for k, v in top}}
+
+
+def phase_profile(state):
+    @phase("7 profile")
+    def run():
+        state["profile"] = {f"2^{lg}": _profile_prove(1 << lg) for lg in (16, 20)}
+        return json.dumps(state["profile"])
     run()
 
 
@@ -397,7 +588,7 @@ def main() -> int:
     state = {"kernels": {k: {"name": k, "route": "cuda", **v} for k, v in KERNELS.items()}}
     try:
         for run_phase in (phase_build, phase_kernels, phase_fixture, phase_bench,
-                          phase_big, phase_launches):
+                          phase_big, phase_launches, phase_profile):
             run_phase(state)
     except Exception as e:  # noqa: BLE001 — report the failing phase, exit non-zero
         import traceback
@@ -411,7 +602,10 @@ def main() -> int:
                           for k, t in state["fft_times"].items()},
                "interpolate_2^22_ms": state["interp_22_ms"],
                "field": state["field_extra"],
-               "prove_2^16": state["prove_16"], "prove_2^20": state["prove_20"]}
+               "batch_inverse": {f"2^{k}": t for k, t in state["inv_times"].items()},
+               "prove_2^16": state["prove_16"], "prove_2^20": state["prove_20"],
+               "launches_2^16": state["launches"], "launches_2^20": state["launches_20"],
+               "profile": state["profile"]}
     print("summary " + json.dumps(summary), flush=True)
     print(json.dumps({"kernels": list(state["kernels"].values())}), flush=True)
     print(state["smi"], flush=True)

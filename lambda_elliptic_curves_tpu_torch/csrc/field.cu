@@ -3,14 +3,14 @@
 // Replaces XLA code, not a Pallas kernel: the JAX package runs field
 // arithmetic as fused 16-bit-digit XLA programs
 // (lambda_elliptic_curves_tpu/ops/limbs.py: add :600, sub :610, neg :624,
-// mont_mul :750, mont_square :829, mont_pow :860, mont_inv :890,
-// batch_inverse :895).  Built from torch ops, one 256-bit multiply would be
-// dozens of launches; here it is one thread per element.
+// mont_mul :750, mont_square :829, mont_pow :860, mont_inv :890).  Built
+// from torch ops, one 256-bit multiply would be dozens of launches; here it
+// is one thread per element.  Batch inversion is batch_inverse.cu.
 //
 // Bound on this card: a multiply reads 64 bytes and writes 32 for about
-// 150 integer instructions, so mul is close to the memory roofline and add /
-// sub are memory bound; pow (Fermat inversion: ~250 squarings and ~200
-// multiplies per element) is bound by the 32-bit multiply rate.  Design:
+// 170 integer instructions, so mul is close to the memory roofline and add /
+// sub are memory bound; pow (a^(p-2): 252 squarings and 194 multiplies per
+// element) is bound by the 32-bit multiply rate.  Design:
 // one thread per element, limbs read plane by plane so that neighbouring
 // threads read neighbouring words; an operand that is one value broadcast
 // over the batch is read with element stride 0, so constants are never

@@ -127,23 +127,33 @@ LW_HD void lw_mont_mul(const uint32_t a[LW_LIMBS], const uint32_t b[LW_LIMBS],
     lw_reduce_once(r);
 }
 
+// R mod p, the Montgomery one
+LW_HD void lw_mont_one(uint32_t r[LW_LIMBS]) {
+    // R mod p = 2^256 - 31p, since 31p < 2^256 < 32p: negate 31p limb by
+    // limb, carrying the product's high word and the borrow together
+    uint64_t borrow = 0;
+#pragma unroll
+    for (int i = 0; i < LW_LIMBS; i++) {
+        uint64_t prod = (uint64_t)lw_p_limb(i) * 31u + borrow;
+        r[i] = 0u - (uint32_t)prod;
+        borrow = (prod >> 32) + ((uint32_t)prod != 0u ? 1u : 0u);
+    }
+}
+
+LW_HD bool lw_is_zero(const uint32_t a[LW_LIMBS]) {
+    uint32_t any = 0;
+#pragma unroll
+    for (int i = 0; i < LW_LIMBS; i++) any |= a[i];
+    return any == 0;
+}
+
 // a^e for an exponent given as LW_LIMBS little-endian words and its bit
 // length (left-to-right square and multiply).  e = 0 gives R mod p, the
 // Montgomery one.
 LW_HD void lw_mont_pow(const uint32_t a[LW_LIMBS], const uint32_t e[LW_LIMBS],
                        int nbits, uint32_t r[LW_LIMBS]) {
     uint32_t acc[LW_LIMBS];
-    {
-        // R mod p = 2^256 - 31p, since 31p < 2^256 < 32p: negate 31p limb
-        // by limb, carrying the product's high word and the borrow together
-        uint64_t borrow = 0;
-#pragma unroll
-        for (int i = 0; i < LW_LIMBS; i++) {
-            uint64_t prod = (uint64_t)lw_p_limb(i) * 31u + borrow;
-            acc[i] = 0u - (uint32_t)prod;
-            borrow = (prod >> 32) + ((uint32_t)prod != 0u ? 1u : 0u);
-        }
-    }
+    lw_mont_one(acc);
     for (int bit = nbits - 1; bit >= 0; bit--) {
         lw_mont_mul(acc, acc, acc);
         if ((e[bit >> 5] >> (bit & 31)) & 1u) lw_mont_mul(acc, a, acc);

@@ -1,9 +1,7 @@
 """Native libraries of the port, built at first use into ``build/``.
 
-* the host Keccak-256 (transcripts, Merkle path checks): the JAX
-  package's C source ``lambda_elliptic_curves_tpu/native/keccak.c``,
-  compiled by path with ``cc`` (the source is read, never imported: that
-  package's ``__init__`` imports jax);
+* the host Keccak-256 (transcripts, Merkle path checks): the port's own C
+  source ``csrc/host/keccak.c``, compiled with ``cc``;
 * the CUDA kernels ``csrc/*.cu``: one shared library with a plain C
   interface, compiled with ``nvcc`` for ``sm_90a`` and loaded with ctypes.
 
@@ -28,14 +26,15 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
 CSRC_DIR = os.path.join(_PKG, "csrc")
-HOST_KECCAK_SRC = os.path.join(os.path.dirname(_PKG), "lambda_elliptic_curves_tpu",
-                               "native", "keccak.c")
+HOST_KECCAK_SRC = os.path.join(CSRC_DIR, "host", "keccak.c")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-#: kernel name -> launches since the last reset (``launches.clear()``)
-launches: dict = {"field": 0, "ntt": 0, "keccak": 0}
+#: kernel name -> launches since the last reset (set every count to 0):
+#: ``field`` the elementwise ops, ``field_pow`` powers by a host exponent,
+#: ``field_inv`` batch inversion (``csrc/batch_inverse.cu``)
+launches: dict = {"field": 0, "field_pow": 0, "field_inv": 0, "ntt": 0, "keccak": 0}
 
 _lock = threading.Lock()
 _host = None
@@ -106,6 +105,7 @@ def cuda_lib():
             sigs = {
                 "lw_field_op": [I, P, L, L, P, L, L, P, L, P],
                 "lw_field_pow": [P, L, L, P, L, P, I, P],
+                "lw_field_batch_inverse": [P, P, L, P],
                 "lw_ntt": [P, P, P, L, I, P],
                 "lw_keccak_f": [P, P, L, P],
                 "lw_keccak256_words": [P, I, L, I, P, P],

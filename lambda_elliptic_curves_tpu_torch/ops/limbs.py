@@ -11,8 +11,9 @@ across, and the Merkle wire form needs no multiply.
 Every public operation dispatches on the device of its operands: a CUDA
 tensor goes to the elementwise field kernel (``csrc/field.cu``, which
 replaces the XLA digit code of ``lambda_elliptic_curves_tpu/ops/limbs.py``)
-or raises; a CPU tensor goes to the plain PyTorch version beside it.  The
-plain versions compute on 16-bit digits held in ``int64``: torch's CPU
+or to the batch-inversion kernel (``csrc/batch_inverse.cu``), or raises;
+a CPU tensor goes to the plain PyTorch version beside it.  The plain
+versions compute on 16-bit digits held in ``int64``: torch's CPU
 ``uint32`` has no ``+``, shifts or comparisons, and a 32x32-bit product
 overflows a signed ``int64``.  They accept tensors on any device, so the
 kernel can be held against them on the card.
@@ -226,7 +227,7 @@ def batch_inverse_plain(a):
 
 
 # ---------------------------------------------------------------------------
-# kernel 3 wrappers (csrc/field.cu)
+# kernel 3 and 4 wrappers (csrc/field.cu, csrc/batch_inverse.cu)
 # ---------------------------------------------------------------------------
 
 def _operand(x: torch.Tensor, batch: tuple, n: int):
@@ -269,9 +270,23 @@ def _field_pow_cuda(a, exponent: int):
         *[(e >> (32 * k)) & 0xFFFFFFFF for k in range(LIMBS)])
     if n == 0:
         return out
-    native.launch("field", "lw_field_pow", a_t.data_ptr(), a_ls, a_es,
+    native.launch("field_pow", "lw_field_pow", a_t.data_ptr(), a_ls, a_es,
                   out.data_ptr(), n, words, e.bit_length())
     return out
+
+
+def _batch_inverse_cuda(a):
+    """Kernel 4 (``csrc/batch_inverse.cu``): Montgomery's trick over the
+    flattened batch, one launch."""
+    if a.dtype != torch.int32 or not a.is_cuda or a.dim() < 1 or a.shape[0] != LIMBS:
+        raise TypeError("batch inversion takes (8, *batch) int32 CUDA tensors")
+    flat = a.reshape(LIMBS, -1).contiguous()
+    out = torch.empty_like(flat)
+    n = flat.shape[1]
+    if n:
+        native.launch("field_inv", "lw_field_batch_inverse", flat.data_ptr(),
+                      out.data_ptr(), n)
+    return out.reshape(a.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +325,9 @@ def mont_pow(a, exponent: int):
 
 
 def batch_inverse(a):
-    """Elementwise inverse, zeros mapping to zero: on the card Fermat per
-    element (a^(p-2), one kernel launch), on the CPU Montgomery's trick."""
-    return batch_inverse_plain(a) if _on_cpu(a) else _field_pow_cuda(a, P - 2)
+    """Elementwise inverse, zeros mapping to zero, by Montgomery's trick: on
+    the card one launch of kernel 4, on the CPU the plain version."""
+    return batch_inverse_plain(a) if _on_cpu(a) else _batch_inverse_cuda(a)
 
 
 mont_inv = batch_inverse

@@ -81,6 +81,23 @@ def test_field_kernel_matches_plain(dev, op):
     assert torch.equal(_on_card(kernel, a.to(dev), b.to(dev)), plain(a, b))
 
 
+@pytest.mark.parametrize("shape", [(3, 7, 1001), (4, (1 << 17) + 3)])
+def test_batch_inverse_kernel_ragged_zeros_batched(dev, shape):
+    """Ragged sizes (two chunk lengths), zeros in runs and at both ends, a
+    3-D batch; bitwise against the plain version on the card."""
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(n)
+    vals = rng.integers(0, 1 << 32, (8, n), dtype=np.uint32)
+    vals[7] &= 0x07FFFFFF  # below 2^251 < p
+    vals[:, ::97] = 0
+    vals[:, 1000:1100] = 0
+    vals[:, [0, -1]] = 0
+    a = torch.from_numpy(vals.view(np.int32)).reshape((8,) + shape).to(dev)
+    got = Stark252.batch_inverse(a)
+    assert torch.equal(got, limbs.batch_inverse_plain(a))
+    assert not got.reshape(8, -1)[:, [0, -1]].any()
+
+
 def test_field_kernel_broadcast_operand(dev):
     """One value over the batch is read with element stride 0."""
     a = Stark252.array(_ints(8, 100), "cpu").reshape(8, 2, 53)
@@ -129,10 +146,28 @@ def test_every_kernel_counts_its_launches(dev):
     Stark252.mul(x, x)
     ntt.fft(x, Stark252)
     keccak.keccak256_words(_words(1, (8, 64)).to(dev), 32)
+    Stark252.batch_inverse(x)
+    Stark252.pow(x, 5)
     torch.cuda.synchronize()
     assert native.launches["keccak"] == 1
     assert native.launches["ntt"] == 1
     assert native.launches["field"] >= 1
+    assert native.launches["field_inv"] == 1
+    assert native.launches["field_pow"] == 1
+
+
+def test_prove_inverts_with_the_batch_inverse_kernel(dev):
+    """A 2^16-row prove launches the Montgomery-trick kernel, never Fermat."""
+    rows = 1 << 16
+    air, pub, opts = fibonacci_air_for(Stark252), FibonacciPublicInputs(1, 1), \
+        ProofOptions(4, 32, 3, 0)
+    trace = fibonacci_trace(Stark252, [1, 1], rows, dev)
+    native.launches.update({k: 0 for k in native.launches})
+    proof = prove(air, trace, pub, opts, DefaultTranscript(Stark252), device=dev)
+    torch.cuda.synchronize()
+    counts = dict(native.launches)
+    assert counts["field_inv"] > 0 and counts["field_pow"] == 0, counts
+    assert verify(air, proof, pub, opts, DefaultTranscript(Stark252))
 
 
 def test_proof_on_card_equals_jax_fixture(dev):

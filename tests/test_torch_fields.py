@@ -80,7 +80,8 @@ def test_batch_inverse_maps_zeros_to_zero():
 
 
 def test_fermat_plain_equals_batch_inverse_plain():
-    """The card inverts by Fermat (a^(p-2)); its plain version and the CPU
-    path's Montgomery trick must agree, zeros included."""
+    """Fermat (a^(p-2), ``pow``'s route) and Montgomery's trick (the route
+    of ``batch_inverse``, on the card and on the CPU) must agree, zeros
+    included."""
     a = Stark252.array(_ints(6, 10, zeros=2), "cpu")
     assert torch.equal(limbs.mont_pow_plain(a, P - 2), limbs.batch_inverse_plain(a))
