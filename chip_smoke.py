@@ -13,16 +13,20 @@ Phases (one result line each, with its seconds):
      holds batch inversion against its plain version at the prover's
      shapes ((8, 2, N) and (8, 4, N) for N = 2^18 and 2^22), ragged sizes
      and a 3-D batch, with zeros, and times it in turns against Fermat
-     (a^(p-2)) at 2^18, 2^20, 2^23 and 2^24 elements
+     (a^(p-2)) at 2^18, 2^20, 2^23 and 2^24 elements; 2c holds every NTT
+     pass of every size 2^1 .. 2^22 at (8, 1|2|4, N) against
+     ``ntt_pass_plain``, and the whole fft against the CPU path up to 2^14;
+     2d times fft at 2^14 .. 2^22 and checks that fft 2^22 is its pass
+     launches and no other device work
   3. Fibonacci 2^10 rows, ProofOptions(4, 32, 3, 0): serialized proof
      byte-equal to the JAX package's checked-in proof; verify accepts it and
      rejects it with fri_last_value + 1
   4. Fibonacci 2^16 rows as bench.py's stark_fib_prove runs it: one warm-up
      prove, a timed prove (kernel launch counts reset just before it) and
      verify
-  5. prove + verify at 2^20 rows: a first prove (it builds the twiddle
-     tables of the new sizes), then a timed prove (launch counts reset just
-     before it) and verify
+  5. prove + verify at 2^20 rows: a first prove (it builds the NTT's root
+     tables of the new sizes), the device bytes of every NTT cache after it,
+     then a timed prove (launch counts reset just before it) and verify
   6. launch count of each kernel during the timed proves of phases 4 and 5
      (each > 0, and none of the Fermat kernel ``field_pow``)
   7. a torch.profiler trace of one warm prove at 2^16 and at 2^20 rows:
@@ -30,7 +34,8 @@ Phases (one result line each, with its seconds):
 
 Each kernel's ``bound_ms`` is the larger of its bytes (inputs read once,
 outputs written once) over the card's memory rate and its 32-bit integer
-operations over the card's integer rate (see ``bound``).
+operations over the card's integer rates, each pipe and the issue rate
+(see ``bound``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits
@@ -42,7 +47,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -62,20 +66,28 @@ KERNELS = {
 }
 
 # The card's peak rates (NVIDIA's H100 SXM data sheet and the CUDA
-# programming guide's throughput table for compute capability 9.0): device
-# memory 3.35 TB/s; 64 32-bit integer multiply-adds (and other integer
-# instructions) per clock per SM, at the card's maximum SM clock.
+# programming guide's throughput table for compute capability 9.0), at the
+# card's maximum SM clock: device memory 3.35 TB/s.  Each SM issues one
+# warp instruction per clock from each of its four schedulers (128 lanes
+# per clock) to two integer pipes of 64 lanes per clock each: the FMA pipe
+# alone runs multiply-adds (IMAD), the ALU pipe alone runs logic ops and
+# funnel shifts (LOP3, SHF), and adds with carry and moves run on either
+# (IADD3.X or IMAD.X, MOV or IMAD.MOV; the compiler splits them).  So a mix
+# takes at least the largest of multiply-adds / 64, logic / 64 and
+# all / 128 clocks per SM.
 HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_CLOCK_PER_SM = 64
-# 32-bit integer instructions per operation, estimated from the sources:
-# a CIOS Montgomery product (mont.cuh): 64 widening products of a*b, 24 of
-# m*p (p's five zero limbs fold away), carry adds and the final
-# conditional subtraction; an add or sub with its reduction; a keccak-f
-# permutation with 3-input logic ops and funnel shifts (per round: theta
-# 90, rho 48, chi 50, iota 2; 24 rounds).
-MONT_MUL_OPS = 170
-ADD_OPS = 24
-KECCAK_F_OPS = 24 * 190
+INT_PIPE_PER_CLOCK_PER_SM = 64
+INT_ISSUE_PER_CLOCK_PER_SM = 128
+# 32-bit integer instructions per operation, estimated from the sources, as
+# (multiply-adds, logic ops and shifts, other): a CIOS Montgomery product
+# (mont.cuh) is 170: 64 widening products of a*b and 24 of m*p (p's five
+# zero limbs fold away), carry adds, and the final conditional subtraction
+# (8 selects); an add or sub with its reduction is 24, 8 of them selects;
+# a keccak-f permutation is 3-input logic ops and funnel shifts (per round:
+# theta 90, rho 48, chi 50, iota 2; 24 rounds).
+MONT_MUL_OPS = (88, 8, 74)
+ADD_OPS = (0, 8, 16)
+KECCAK_F_OPS = (0, 24 * 190, 0)
 
 
 class SmokeError(RuntimeError):
@@ -98,23 +110,6 @@ def phase(name: str):
     return deco
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events, one
-    warm-up call first)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def max_abs_err(a, b) -> int:
     import torch
 
@@ -122,11 +117,22 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def bound(state, nbytes: float, ops: float):
+def ops(*terms) -> tuple:
+    """(multiply-adds, logic ops, other) of ``terms``, each a pair (count,
+    per-operation counts such as ``MONT_MUL_OPS``)."""
+    return tuple(sum(count * per[i] for count, per in terms) for i in range(3))
+
+
+def bound(state, nbytes: float, counts: tuple):
     """(least ms, what bounds it) for moving ``nbytes`` through device memory
-    and doing ``ops`` 32-bit integer instructions on this card."""
+    and doing ``counts`` = (multiply-adds, logic ops, other) 32-bit integer
+    instructions on this card: the slower of the two, the instructions at
+    the busier pipe's rate or at the issue rate, whichever is slower."""
+    mads, logic, other = counts
+    clocks = max(mads / INT_PIPE_PER_CLOCK_PER_SM, logic / INT_PIPE_PER_CLOCK_PER_SM,
+                 (mads + logic + other) / INT_ISSUE_PER_CLOCK_PER_SM)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / state["int_ops_per_s"]
+    t_ops = clocks / state["sm_clocks_per_s"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -135,13 +141,7 @@ def inv_bound(state, a):
     written per element."""
     n = a[0].numel()
     nonzero = int((a != 0).any(dim=0).sum().item())
-    return bound(state, 64.0 * n, 3.0 * MONT_MUL_OPS * nonzero)
-
-
-def _smi(query: str) -> str:
-    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                       capture_output=True, text=True, timeout=60)
-    return r.stdout.strip().splitlines()[0] if r.stdout.strip() else "unknown"
+    return bound(state, 64.0 * n, ops((3 * nonzero, MONT_MUL_OPS)))
 
 
 # ---------------------------------------------------------------------------
@@ -149,14 +149,16 @@ def _smi(query: str) -> str:
 def phase_build(state):
     import torch
     from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.tools._timing import smi
 
-    state["smi"] = _smi("name,power.limit")
+    state["smi"] = smi("name,power.limit")
     print(state["smi"], flush=True)
-    clock_mhz = float(_smi("clocks.max.sm").split()[0])
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    state["int_ops_per_s"] = sms * INT_OPS_PER_CLOCK_PER_SM * clock_mhz * 1e6
-    print(f"{sms} SMs at {clock_mhz:.0f} MHz: {state['int_ops_per_s']:.4g} integer "
-          f"ops/s; memory {HBM_BYTES_PER_S:.4g} B/s", flush=True)
+    state["sm_clocks_per_s"] = sms * clock_mhz * 1e6
+    print(f"{sms} SMs at {clock_mhz:.0f} MHz: {state['sm_clocks_per_s'] * 64:.4g} integer "
+          f"ops/s per pipe, {state['sm_clocks_per_s'] * 128:.4g} issued; memory "
+          f"{HBM_BYTES_PER_S:.4g} B/s", flush=True)
 
     @phase("1 build")
     def run():
@@ -171,12 +173,10 @@ def phase_build(state):
 def _random_field(n: int, gen, dev):
     """(8, n) canonical values below 2^251 < p, drawn on the card from the
     CUDA generator ``gen``, with edge values first."""
-    import torch
     from lambda_elliptic_curves_tpu_torch.fields import Stark252 as f
+    from lambda_elliptic_curves_tpu_torch.tools._timing import random_field
 
-    x = torch.randint(-2**31, 2**31, (8, n), generator=gen, device=dev, dtype=torch.int64)
-    x = x.to(torch.int32)
-    x[7] &= 0x07FFFFFF
+    x = random_field((n,), gen)
     x[:, :4] = f.array([0, 1, f.p - 1, f.p - 2], dev)[:, :n]
     return x
 
@@ -184,10 +184,12 @@ def _random_field(n: int, gen, dev):
 def phase_kernels(state):
     import numpy as np
     import torch
+    from lambda_elliptic_curves_tpu_torch import native
     from lambda_elliptic_curves_tpu_torch.fields import Stark252 as f
     from lambda_elliptic_curves_tpu_torch.hashes import keccak
     from lambda_elliptic_curves_tpu_torch.ops import limbs
     from lambda_elliptic_curves_tpu_torch.poly import ntt
+    from lambda_elliptic_curves_tpu_torch.tools._timing import cuda_ms, traced_kernels
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -221,7 +223,7 @@ def phase_kernels(state):
                              cuda_ms(lambda: keccak.keccak256_words_plain(words, nbytes), 2))
         ms, plain_ms = times[64]
         # one permutation per message; 64 B read and a 32 B digest written
-        bound_ms, bound_by = bound(state, 96.0 * (1 << 18), KECCAK_F_OPS * (1 << 18))
+        bound_ms, bound_by = bound(state, 96.0 * (1 << 18), ops((1 << 18, KECCAK_F_OPS)))
         rec["keccak"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None,
                              shape="keccak256_words, 2^18 messages of 64 B")
@@ -260,7 +262,7 @@ def phase_kernels(state):
         a4, b4 = _random_field(1 << 22, gen, dev), _random_field(1 << 22, gen, dev)
         ms = cuda_ms(lambda: f.mul(a4, b4), 20)
         plain_ms = cuda_ms(lambda: limbs.mont_mul_plain(a4, b4), 2)
-        bound_ms, bound_by = bound(state, 96.0 * (1 << 22), MONT_MUL_OPS * (1 << 22))
+        bound_ms, bound_by = bound(state, 96.0 * (1 << 22), ops((1 << 22, MONT_MUL_OPS)))
         rec["field"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None, shape="mul, 2^22 elements")
         state["field_extra"] = {"mul_2^18_ms": mul_18_ms}
@@ -312,7 +314,8 @@ def phase_kernels(state):
             check(torch.equal(kern(), ferm()), f"batch inverse != Fermat at 2^{log_n}")
             b_ms, b_by = inv_bound(state, x)
             # Fermat: 252 squarings and 194 multiplies per element
-            fb_ms, fb_by = bound(state, 64.0 * x.shape[1], 446.0 * MONT_MUL_OPS * x.shape[1])
+            fb_ms, fb_by = bound(state, 64.0 * x.shape[1],
+                                 ops((446 * x.shape[1], MONT_MUL_OPS)))
             times[log_n] = {"kernel_ms": [k1, k2], "fermat_ms": [f1, f2], "bound_ms": b_ms,
                             "bound_by": b_by, "fermat_bound_ms": fb_ms, "fermat_bound_by": fb_by,
                             "speedup": (f1 + f2) / (k1 + k2)}
@@ -330,45 +333,88 @@ def phase_kernels(state):
                     f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})" for k, t in times.items()))
     run_inverse()
 
-    @phase("2c local ntt")
-    def run_local():
-        err = 0
-        for log_n in range(1, 12):
+    @phase("2c ntt passes")
+    def run_passes():
+        # every pass of every size 2^1 .. 2^22 at the prover's batches
+        # (1, 2 and 4 rows), bitwise against ntt_pass_plain on the same input;
+        # up to 2^14 also with radices of at most 2^3 (more passes), and the
+        # whole fft against the CPU path (the same passes on a CPU tensor)
+        err, checked = 0, 0
+        for log_n in range(1, 23):
             n = 1 << log_n
-            x = _random_field(64 * n, gen, dev).reshape(8, 64, n)
             root = f.params.primitive_root_of_unity(log_n)
-            err = max(err, max_abs_err(ntt.local_ntt(x, f, root),
-                                       ntt._local_plain_any(x, f, root)))
-        check(err == 0, "local NTT kernel != plain")
-        return "n = 2^1 .. 2^11 (64 rows each) bitwise equal"
-    run_local()
+            tables = ntt.twiddle_tables(f, root, log_n, dev)
+            for rows in (1, 2, 4):
+                x = _random_field(rows * n, gen, dev).reshape(8, rows, n)
+                for max_pass_log in (ntt.MAX_PASS_LOG, 3)[:2 if log_n <= 14 else 1]:
+                    cur, ns_log = x, 0
+                    for s in ntt.pass_plan(log_n, max_pass_log):
+                        got = ntt.ntt_pass(cur, torch.empty_like(cur), tables, ns_log, s)
+                        want = ntt.ntt_pass_plain(cur, tables, ns_log, s)
+                        err = max(err, max_abs_err(got, want))
+                        check(err == 0, f"NTT pass kernel != plain at 2^{log_n} x {rows}, "
+                              f"radix 2^{s} after 2^{ns_log}")
+                        cur, ns_log = got, ns_log + s
+                        checked += 1
+                    check(torch.equal(ntt.fft_with_root(x, f, root, max_pass_log), cur),
+                          f"fft != its chain of passes at 2^{log_n} x {rows}")
+                    if log_n <= 14:
+                        check(torch.equal(cur.cpu(), ntt.fft_with_root(x.cpu(), f, root,
+                                                                       max_pass_log)),
+                              f"fft on the card != CPU path at 2^{log_n} x {rows}")
+                del x, cur, got, want
+        state["ntt_err"] = err
+        torch.cuda.empty_cache()
+        return (f"{checked} passes bitwise equal to ntt_pass_plain (2^1 .. 2^22 x 1/2/4 rows; "
+                f"radix <= 2^{ntt.MAX_PASS_LOG}, and <= 2^3 up to 2^14); fft = CPU path up to 2^14")
+    run_passes()
 
     @phase("2d fft")
     def run_fft():
-        err = 0
-        times = {}
+        times, bounds = {}, {}
         for log_n in (14, 16, 18, 22):
             n = 1 << log_n
             x = _random_field(n, gen, dev)
-            root = f.params.primitive_root_of_unity(log_n)
             got = ntt.fft(x, f)
-            err = max(err, max_abs_err(got, ntt.fft_with_root_plain(x, f, root)))
-            check(err == 0, f"fft 2^{log_n} kernel path != plain path")
             check(torch.equal(ntt.ifft(got, f), x), f"ifft(fft(x)) != x at 2^{log_n}")
-            times[log_n] = (cuda_ms(lambda: ntt.fft(x, f), 10 if log_n < 22 else 5),
-                            cuda_ms(lambda: ntt.fft_with_root_plain(x, f, root), 1))
-        ms, plain_ms = times[18]
-        # (n / 2) log2 n butterflies of one product, one add and one sub;
-        # 32 B read and 32 B written per point
-        n = 1 << 18
-        bound_ms, bound_by = bound(state, 64.0 * n,
-                                   n // 2 * 18 * (MONT_MUL_OPS + 2 * ADD_OPS))
-        rec["ntt"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None,
-                          shape="fft 2^18 (four-step over 2^9-point local kernels)")
-        state["fft_times"] = times
-        return "fft 2^14/16/18/22 equal to plain, ifft round trip; " + ", ".join(
-            f"2^{k}: kernel {t[0]:.3f} ms plain {t[1]:.1f} ms" for k, t in times.items())
+            times[log_n] = cuda_ms(lambda: ntt.fft(x, f), 20 if log_n < 22 else 10)
+            # (n / 2) log2 n butterflies of one product, one add and one sub;
+            # 32 B read and 32 B written per point
+            bounds[log_n] = bound(state, 64.0 * n, ops((n // 2 * log_n, MONT_MUL_OPS),
+                                                       (n * log_n, ADD_OPS)))
+            if log_n == 18:
+                plain_ms = cuda_ms(lambda: ntt.fft_with_root_plain(
+                    x, f, f.params.primitive_root_of_unity(18)), 1)
+            if log_n == 22:
+                # the whole transform is the pass kernel's launches and nothing
+                # else: the launch counts say how many, every trace holds pass
+                # launches only, and one trace holds them all
+                passes = len(ntt.pass_plan(22))
+
+                def counted_fft():
+                    native.launches.update({k: 0 for k in native.launches})
+                    ntt.fft(x, f)
+                    check(native.launches["ntt"] == passes
+                          and sum(native.launches.values()) == passes,
+                          f"fft 2^22 launched {native.launches}, not {passes} passes")
+
+                traces = traced_kernels(counted_fft, passes)
+                check(all("ntt_pass_kernel" in k for names in traces for k in names)
+                      and len(traces[-1]) == passes,
+                      f"fft 2^22 ran other device work than {passes} pass launches: {traces}")
+        rec["ntt"].update(max_abs_err=state["ntt_err"], ms=times[18], plain_ms=plain_ms,
+                          bound_ms=bounds[18][0], bound_by=bounds[18][1], library_ms=None,
+                          shape=f"fft 2^18, passes {ntt.pass_plan(18)}",
+                          **{"fft_2^22": {"ms": times[22], "bound_ms": bounds[22][0],
+                                          "bound_by": bounds[22][1],
+                                          "passes": ntt.pass_plan(22)}})
+        state["fft_times"] = {k: (t, bounds[k][0]) for k, t in times.items()}
+        return ("ifft round trip at 2^14/16/18/22; fft 2^22 = "
+                f"{len(ntt.pass_plan(22))} pass launches and nothing else (kernels per trace "
+                f"{[len(names) for names in traces]}); " + ", ".join(
+                    f"2^{k}: {t:.4f} ms (bound {bounds[k][0]:.4f}, share "
+                    f"{bounds[k][0] / t:.3f})" for k, t in times.items())
+                + f"; plain 2^18 {plain_ms:.1f} ms")
     run_fft()
 
     @phase("2e interpolate 2^22")
@@ -472,14 +518,17 @@ def phase_bench(state):
 def phase_big(state):
     import torch
     from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.poly import ntt
     from lambda_elliptic_curves_tpu_torch.provers.stark import ProofOptions
     from lambda_elliptic_curves_tpu_torch.provers.stark import prover as prover_mod
+    from lambda_elliptic_curves_tpu_torch.tools._timing import cache_bytes
 
     @phase("5 stark_fib_prove_2^20")
     def run():
         dev, opts = torch.device("cuda"), ProofOptions(4, 32, 3, 0)
         _, first_ms, ok = _prove_verify(1 << 20, dev, opts)  # builds the twiddle tables
         check(ok, "verify rejected the first 2^20 proof")
+        cached = cache_bytes(ntt)
         torch.cuda.reset_peak_memory_stats()
         for name in native.launches:
             native.launches[name] = 0
@@ -487,10 +536,11 @@ def phase_big(state):
         state["launches_20"] = dict(native.launches)
         check(ok, "verify rejected the 2^20 proof")
         phases = {k: round(v * 1000.0, 3) for k, v in prover_mod.last_timings.items()}
-        state["prove_20"] = {"ms": ms, "first_ms": first_ms, "phases_ms": phases}
+        state["prove_20"] = {"ms": ms, "first_ms": first_ms, "phases_ms": phases,
+                             "cached_bytes": cached}
         return json.dumps({"metric": "stark_fib_prove_2^20", "value": round(ms, 3),
                            "unit": "ms", "check": "ok", "first_prove_ms": round(first_ms, 3),
-                           "phases_ms": phases,
+                           "phases_ms": phases, "cached_bytes_after_first_prove": cached,
                            "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)})
     run()
 
@@ -511,51 +561,26 @@ def phase_launches(state):
 
 
 def _profile_prove(rows: int) -> dict:
-    """Device time of one warm prove from a torch.profiler trace: busy time
-    (the union of kernel and copy intervals on the card), idle share of the
-    wall time, and time and launches by kernel."""
+    """Device time of one warm prove from a torch.profiler trace
+    (``tools/_timing.py``'s ``profile``): wall time, device busy time,
+    idle share, and time and launches by kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from lambda_elliptic_curves_tpu_torch.fields import Stark252 as f
     from lambda_elliptic_curves_tpu_torch.fiat_shamir import DefaultTranscript
     from lambda_elliptic_curves_tpu_torch.provers.stark import ProofOptions, prove, verify
+    from lambda_elliptic_curves_tpu_torch.tools._timing import profile
 
     dev, opts = torch.device("cuda"), ProofOptions(4, 32, 3, 0)
     _prove_verify(rows, dev, opts)  # warm
     air, trace, pub = _fib(rows, dev)
     torch.cuda.synchronize()
     # the window holds the prove alone: not the trace's upload, not verify
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        proof = prove(air, trace, pub, opts, DefaultTranscript(f), device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1000.0
+    proof, stats = profile(
+        lambda: prove(air, trace, pub, opts, DefaultTranscript(f), device=dev))
     check(verify(air, proof, pub, opts, DefaultTranscript(f)),
           f"verify rejected the profiled 2^{rows.bit_length() - 1} proof")
-    spans, by_kernel = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        name = e.name.split("(")[0].split("<")[0].replace("void ", "").strip()
-        ms, count = by_kernel.get(name, (0.0, 0))
-        by_kernel[name] = (ms + (end - start) / 1e3, count + 1)
-    busy, reach = 0.0, None
-    for start, end in sorted(spans):
-        if reach is None or start > reach:
-            busy += end - start
-            reach = end
-        elif end > reach:
-            busy += end - reach
-            reach = end
-    busy_ms = busy / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-            "by_kernel": {k: {"ms": round(v[0], 4), "launches": v[1]} for k, v in top}}
+    return stats
 
 
 def phase_profile(state):
@@ -598,7 +623,7 @@ def main() -> int:
         return 1
 
     summary = {"card": state["smi"], "build_s": round(state["build_s"], 3),
-               "fft_ms": {f"2^{k}": {"kernel": round(t[0], 4), "plain": round(t[1], 3)}
+               "fft_ms": {f"2^{k}": {"kernel": t[0], "bound": t[1]}
                           for k, t in state["fft_times"].items()},
                "interpolate_2^22_ms": state["interp_22_ms"],
                "field": state["field_extra"],

@@ -1,102 +1,113 @@
-// Local Stark252 NTT: one block transforms one row of n <= 2^11 points in
-// shared memory (kernel 1).
+// Stark252 NTT pass kernel (kernel 1): one launch runs one Stockham pass of
+// radix 2^s over (8, rows, N) limb planes; poly/ntt.py runs a transform of
+// 2^L points as ceil(L / s_max) such passes, natural order in and out.
 //
 // Replaces the Pallas kernel lambda_elliptic_curves_tpu/poly/ntt_pallas.py
-// :108 _kernel_for (pallas_call at :164; driven by _local_fft :183), which
-// runs every butterfly stage of a local transform on a VMEM-resident block.
-// On the TPU that kernel is a DIF network built from lane rotates; here it
-// is a plain radix-2 Cooley-Tukey DIT network over shared memory.
+// :109 _kernel_for (pallas_call at :164; driven by _local_fft :183), which
+// runs every butterfly stage of a local transform of n <= 1024 points on a
+// VMEM-resident block, and, with it, the four-step split that put the
+// transposes and an N-point cross-twiddle multiply around it.
 //
-// Bound on this card: per butterfly one Montgomery product, an add and a
-// subtract (about 200 integer instructions) against 64 bytes of shared
-// memory traffic, so the kernel is bound by the 32-bit multiply rate once
-// the row is in shared memory; device memory is read and written once.
-// Design:
-//  * the row is held as 8 limb planes of n words in dynamic shared memory
-//    (2^11 points = 64 KB, above the 48 KB default, hence the attribute);
-//    neighbouring threads touch neighbouring words of a plane;
-//  * the input is loaded to bit-reversed positions, so the DIT stages leave
-//    the spectrum in natural order and nothing is permuted afterwards;
-//  * every butterfly reduces strictly (canonical values in and out), so the
-//    output is canonical: the lazy bounds of ntt_pallas.py :121-126 are not
-//    carried over;
-//  * twiddles root^0 .. root^(n/2-1) come from a table in device memory
-//    that the caller builds once per (n, root); stage s reads every
-//    (n >> s)-th entry;
-//  * a longer transform is split by the caller (poly/ntt.py, four-step).
+// Bound on this card: 32-bit integer operations.  A transform does
+// (N/2) log2 N butterflies, each a Montgomery product (about 170 integer
+// instructions: 64 widening products of a*b, 24 of m*p) plus an add and a
+// subtract, against 64 bytes of device memory per point and pass.  At
+// N = 2^22, issued at 128 instructions per clock per SM across the two
+// integer pipes, that is 0.30 ms of operations against 0.08 ms of bytes
+// per pass.
+//
+// Design (the block's work is lw_ntt_pass_block in ntt.cuh):
+//  * no transposes: the Stockham addressing reads column j's points at
+//    stride N/2^s and writes them where the next pass reads them, so each
+//    pass reads and writes every point once and the last pass leaves the
+//    spectrum in natural order;
+//  * a block takes 2^s points from each of C = 8 adjacent columns;
+//    neighbouring threads take neighbouring columns, so every limb plane is
+//    read and written in runs of C words (32 bytes) whatever the stride;
+//  * the tile stays in shared memory for the pass's s stages, run two
+//    stages per synchronisation (radix 4: four points in registers);
+//  * no table of N twiddles: every root power is one product of two tables
+//    of about 2^(L/2) entries (w^e = T_hi[e >> h] * T_lo[e mod 2^h]), read
+//    once per block into small per-column tables in shared memory; a point
+//    costs one product for its twist and one to apply it;
+//  * products are 64-bit multiply-adds and the reduction and sums the
+//    card's carry-chain instructions (ntt.cuh: lw_ntt_mul,
+//    lw_ntt_butterfly), p's sparse limbs folded into a few words; every
+//    product and sum reduces strictly, so values stay canonical and the
+//    output equals the plain version's bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mont.cuh"
+#include "ntt.cuh"
 
-#define LW_NTT_MAX_LOG 11
+#define LW_NTT_THREADS 256
+#define LW_NTT_MIN_BLOCKS 2     // blocks per SM the registers must allow
+#define LW_NTT_MAX_SMEM 232448  // bytes a block may use on sm_90
+// log2 of the columns a block takes: C = 8, 84 KB of shared memory at radix
+// 2^8, two blocks per SM, and every limb plane read and written in 32-byte
+// runs (one memory sector).  tools/sweep_ntt.py times C = 4 .. 32 at every
+// radix; C = 4 was within 1% of C = 8 at 2^22 points, C = 16 slower.
+#define LW_NTT_TILE_COLS_LOG 3
 
-__global__ void ntt_kernel(const int32_t* x, int32_t* out, const int32_t* tw,
-                           long rows, int log_n) {
-    extern __shared__ uint32_t sm[];  // [LW_LIMBS][n]
-    const int n = 1 << log_n;
-    const int half_n = n >> 1;
-    const long row = blockIdx.x;
-
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        int rj = (int)(__brev((unsigned)j) >> (32 - log_n));
-#pragma unroll
-        for (int k = 0; k < LW_LIMBS; k++)
-            sm[k * n + rj] = (uint32_t)x[((long)k * rows + row) * n + j];
-    }
-    __syncthreads();
-
-    for (int s = 1; s <= log_n; s++) {
-        const int half = 1 << (s - 1);
-        const int tw_step = n >> s;
-        for (int b = threadIdx.x; b < half_n; b += blockDim.x) {
-            int j = b & (half - 1);
-            int i0 = ((b >> (s - 1)) << s) + j;
-            int i1 = i0 + half;
-            int ti = j * tw_step;
-            uint32_t u[LW_LIMBS], v[LW_LIMBS], w[LW_LIMBS], t[LW_LIMBS];
-#pragma unroll
-            for (int k = 0; k < LW_LIMBS; k++) {
-                u[k] = sm[k * n + i0];
-                v[k] = sm[k * n + i1];
-                w[k] = (uint32_t)tw[(long)k * half_n + ti];
-            }
-            lw_mont_mul(w, v, t);
-            lw_add(u, t, w);
-            lw_sub(u, t, v);
-#pragma unroll
-            for (int k = 0; k < LW_LIMBS; k++) {
-                sm[k * n + i0] = w[k];
-                sm[k * n + i1] = v[k];
-            }
-        }
-        __syncthreads();
-    }
-
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-#pragma unroll
-        for (int k = 0; k < LW_LIMBS; k++)
-            out[((long)k * rows + row) * n + j] = (int32_t)sm[k * n + j];
-    }
+__global__ void __launch_bounds__(LW_NTT_THREADS, LW_NTT_MIN_BLOCKS)
+ntt_pass_kernel(LwNttPass P) {
+    extern __shared__ uint32_t sm[];
+    lw_ntt_pass_block(P, blockIdx.x, threadIdx.x, blockDim.x, sm);
 }
 
-// x, out: (8, rows, n) limb planes; tw: (8, n/2) Montgomery root powers.
-extern "C" int lw_ntt(const int32_t* x, int32_t* out, const int32_t* tw,
-                      long rows, int log_n, void* stream) {
+// lw_ntt_passes with 2^log_c columns per block (tools/sweep_ntt.py builds
+// its own entry on it to time other widths)
+static int lw_ntt_run(const int32_t* x, int32_t* out, int32_t* buf, const int32_t* t_lo,
+                      const int32_t* t_hi, long rows, int log_n, int ns_log, const int* radix,
+                      int npasses, int log_c, void* stream) {
     static bool attr_set = false;
-    if (log_n < 1 || log_n > LW_NTT_MAX_LOG) return (int)cudaErrorInvalidValue;
+    int total = ns_log;
+    for (int i = 0; i < npasses; i++) {
+        if (radix[i] < 1) return (int)cudaErrorInvalidValue;
+        total += radix[i];
+    }
+    if (ns_log < 0 || total > log_n || log_n > 30 || log_c < 0 || log_c > 10 || rows < 0
+        || (npasses > 1 && buf == nullptr))
+        return (int)cudaErrorInvalidValue;
     if (!attr_set) {
         cudaError_t err = cudaFuncSetAttribute(
-            ntt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)(LW_LIMBS * sizeof(uint32_t)) << LW_NTT_MAX_LOG);
+            ntt_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LW_NTT_MAX_SMEM);
         if (err != cudaSuccess) return (int)err;
         attr_set = true;
     }
-    const int n = 1 << log_n;
-    const int threads = n / 2 < 256 ? (n / 2 < 32 ? 32 : n / 2) : 256;
-    const size_t smem = (size_t)LW_LIMBS * sizeof(uint32_t) * n;
-    if (rows > 0)
-        ntt_kernel<<<rows, threads, smem, (cudaStream_t)stream>>>(
-            x, out, tw, rows, log_n);
+    const int32_t* src = x;
+    for (int i = 0; i < npasses && rows > 0; i++) {
+        const int s = radix[i];
+        const long cols = rows << (log_n - s);
+        int lc = 0;  // ceil(log2(cols)), at most log_c
+        while (lc < log_c && (1L << lc) < cols) lc++;
+        const long smem = 4 * lw_ntt_pass_smem_words(s, lc);
+        if (smem > LW_NTT_MAX_SMEM) return (int)cudaErrorInvalidValue;
+        const long blocks = (cols + (1L << lc) - 1) >> lc;
+        const long work = (1L << (lc + s)) >> 2;  // radix-4 steps of a block
+        const int threads = work >= LW_NTT_THREADS ? LW_NTT_THREADS : (work < 32 ? 32 : (int)work);
+        int32_t* dst = (npasses - 1 - i) % 2 == 0 ? out : buf;
+        LwNttPass P = {(const uint32_t*)src, (uint32_t*)dst, (const uint32_t*)t_lo,
+                       (const uint32_t*)t_hi, rows, log_n, ns_log, s, lc};
+        ntt_pass_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(P);
+        cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        src = dst;
+        ns_log += s;
+    }
     return (int)cudaGetLastError();
+}
+
+// The passes of radix 2^radix[0], 2^radix[1], ... after radices multiplying
+// to 2^ns_log, one launch each, over (8, rows, 2^log_n) limb planes: x into
+// out, through buf when there are two passes or more (the last pass writes
+// out; x, out and buf distinct).  t_lo, t_hi: the root tables, entry-major.
+// A block takes 2^LW_NTT_TILE_COLS_LOG columns, or fewer when a pass has
+// fewer in all.
+extern "C" int lw_ntt_passes(const int32_t* x, int32_t* out, int32_t* buf,
+                             const int32_t* t_lo, const int32_t* t_hi, long rows,
+                             int log_n, int ns_log, const int* radix, int npasses,
+                             void* stream) {
+    return lw_ntt_run(x, out, buf, t_lo, t_hi, rows, log_n, ns_log, radix, npasses,
+                      LW_NTT_TILE_COLS_LOG, stream);
 }

@@ -3,7 +3,8 @@
 * the host Keccak-256 (transcripts, Merkle path checks): the port's own C
   source ``csrc/host/keccak.c``, compiled with ``cc``;
 * the CUDA kernels ``csrc/*.cu``: one shared library with a plain C
-  interface, compiled with ``nvcc`` for ``sm_90a`` and loaded with ctypes.
+  interface, compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
+  source, all started together, then one link) and loaded with ctypes.
 
 Each library's file name carries a hash of its sources and flags, so an
 edited source is never served by a stale build, and concurrent builds
@@ -30,11 +31,17 @@ HOST_KECCAK_SRC = os.path.join(CSRC_DIR, "host", "keccak.c")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+#: one source to an object; ``-Xptxas -v`` reports each kernel's resources
+COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
 
 #: kernel name -> launches since the last reset (set every count to 0):
 #: ``field`` the elementwise ops, ``field_pow`` powers by a host exponent,
 #: ``field_inv`` batch inversion (``csrc/batch_inverse.cu``)
 launches: dict = {"field": 0, "field_pow": 0, "field_inv": 0, "ntt": 0, "keccak": 0}
+
+#: source file name -> what ``nvcc`` printed while compiling it (with
+#: ``-Xptxas -v``: registers, shared memory and spills of each kernel)
+build_log: dict = {}
 
 _lock = threading.Lock()
 _host = None
@@ -90,6 +97,31 @@ def cuda_sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _compile_cuda(so: str, srcs: list) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in srcs:
+        obj = f"{so}.{os.path.basename(src)}.{os.getpid()}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc] + COMPILE_FLAGS + ["-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, _, proc in jobs:
+        build_log[os.path.basename(src)] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{build_log[os.path.basename(src)]}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        _compile([nvcc] + NVCC_FLAGS, so, [obj for _, obj, _ in jobs])
+    finally:
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
+
+
 def cuda_lib():
     """ctypes handle of the CUDA kernel library (built on first use)."""
     global _cuda
@@ -97,16 +129,16 @@ def cuda_lib():
         if _cuda is None:
             srcs = cuda_sources()
             headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-            so = _tagged_path("liblwt_cuda", srcs + headers, NVCC_FLAGS)
+            so = _tagged_path("liblwt_cuda", srcs + headers, COMPILE_FLAGS)
             if not os.path.exists(so):
-                _compile([_nvcc()] + NVCC_FLAGS, so, srcs)
+                _compile_cuda(so, srcs)
             lib = ctypes.CDLL(so)
             P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
             sigs = {
                 "lw_field_op": [I, P, L, L, P, L, L, P, L, P],
                 "lw_field_pow": [P, L, L, P, L, P, I, P],
                 "lw_field_batch_inverse": [P, P, L, P],
-                "lw_ntt": [P, P, P, L, I, P],
+                "lw_ntt_passes": [P, P, P, P, P, L, I, I, P, I, P],
                 "lw_keccak_f": [P, P, L, P],
                 "lw_keccak256_words": [P, I, L, I, P, P],
             }
@@ -118,13 +150,14 @@ def cuda_lib():
         return _cuda
 
 
-def launch(kernel: str, entry: str, *args) -> None:
+def launch(kernel: str, entry: str, *args, count: int = 1) -> None:
     """Call C entry ``entry`` of the CUDA library with ``args`` (the stream
-    is appended), raise on a CUDA error, count one launch of ``kernel``."""
+    is appended), raise on a CUDA error, count ``count`` launches of
+    ``kernel`` (the launches the entry makes)."""
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(cuda_lib(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err}")
-    launches[kernel] += 1
+    launches[kernel] += count

@@ -8,18 +8,28 @@ conventions (``math/src/fft/polynomial.rs:25,74,87,121``):
   two-adic generator; ``ifft`` is its exact inverse;
 * offset variants scale the coefficients by powers of the offset.
 
-Execution: a transform of up to :data:`MAX_LOCAL` points is one launch of
-the local NTT kernel (``csrc/ntt.cu``, which replaces the Pallas kernel of
-``poly/ntt_pallas.py``); a longer one is split four-step as N = N1*N2 into
-two batched local transforms around one cross-twiddle multiply (the field
-kernel) and three transposes.  A CPU tensor runs the plain version of the
-local transform, :func:`local_ntt_plain`, under the same split.  All
-outputs are canonical Montgomery limbs.
+Execution: a transform of N = 2^L points runs as a Stockham autosort in
+``ceil(L / max_pass_log)`` passes of radix 2^s (:func:`pass_plan`).  Pass
+q, with Ns the product of the earlier radices, takes for every column
+j < N / 2^s the points x[j + t*N/2^s], t < 2^s, multiplies point t by the
+twist w_(Ns*2^s)^((j mod Ns)*t), runs a DFT of 2^s points and writes
+point k to (j div Ns)*Ns*2^s + (j mod Ns) + k*Ns.  Every pass reads and
+writes each point once, natural order in and out; the last pass leaves
+the spectrum in natural order.  On a CUDA tensor each pass is one launch
+of the pass kernel (``csrc/ntt.cu``, which replaces the Pallas kernel of
+``poly/ntt_pallas.py``), all passes of a transform from one call of its C
+entry; on a CPU tensor it is :func:`ntt_pass_plain`, the same pass in
+torch ops.  Root powers come from two tables of about
+2^(L/2) entries per (root, L) (:func:`twiddle_tables`): w^e =
+T_hi[e >> h] * T_lo[e mod 2^h].  All outputs are canonical Montgomery
+limbs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,9 +39,13 @@ from ..ops import limbs
 from ..utils.errors import FFTError
 from .. import native
 
-#: largest transform the local kernel holds in shared memory (8 limbs x
-#: 4 bytes x 2^11 points = 64 KB); longer ones are split four-step
-MAX_LOCAL = 1 << 11
+#: largest radix (log2) of one pass.  With the kernel's 8 columns per block
+#: (``LW_NTT_TILE_COLS_LOG`` in ``csrc/ntt.cu``) a tile of 2^8 points x 8
+#: columns is 84 KB of shared memory, two blocks per SM; 2^22 points take
+#: three passes [8, 7, 7].  The sweep (``tools/sweep_ntt.py``) found radix
+#: 2^8 faster at 2^22 than 2^7 (four passes) at any tile width, and 4
+#: columns per block within 1% of 8; 8 were kept for their 32-byte runs
+MAX_PASS_LOG = 8
 
 
 # ---------------------------------------------------------------------------
@@ -40,12 +54,12 @@ MAX_LOCAL = 1 << 11
 
 @functools.lru_cache(maxsize=None)
 def _bitrev_indices(n: int) -> np.ndarray:
-    bits = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros_like(idx)
-    for b in range(bits):
-        rev |= ((idx >> b) & 1) << (bits - 1 - b)
-    return rev
+    """Bit reversal of 0 .. n-1 (n a power of two), from that of n/2:
+    rev_n = [2 rev_(n/2), 2 rev_(n/2) + 1]."""
+    if n == 1:
+        return np.zeros(1, dtype=np.int64)
+    half = 2 * _bitrev_indices(n // 2)
+    return np.concatenate([half, half + 1])
 
 
 _index_cache: dict = {}
@@ -115,124 +129,188 @@ def get_twiddles(field: PrimeField, order: int, config: str = "bit_reverse", *,
                                         device=device)
 
 
-_mat_cache: dict = {}
+_table_cache: dict = {}
 
 
-def _twiddle_matrix(field: PrimeField, root_int: int, n2: int, n1: int, device):
-    """(8, N2, N1) table with [j2, k1] = root^(j2*k1): the cross twiddles of
-    the four-step split, built by log2(N1) doubling steps over the column
-    of root^j2 (cached per root/size/device)."""
-    key = (field, root_int, n2, n1, str(device))
-    hit = _mat_cache.get(key)
+class Twiddles(NamedTuple):
+    """The two root-power tables of one (root, L): ``lo`` ``(8, 2^h)`` holds
+    root^a and ``hi`` ``(8, 2^(L - h))`` root^(b * 2^h), h = ceil(L / 2), so
+    that root^e = hi[e >> h] * lo[e mod 2^h] for every e < 2^L (one
+    product); ``lo_rows`` / ``hi_rows`` are the same tables entry-major,
+    one 32-byte run per entry, as the kernel reads them."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    lo_rows: torch.Tensor
+    hi_rows: torch.Tensor
+
+
+def twiddle_tables(field: PrimeField, root_int: int, log_n: int, device) -> Twiddles:
+    """:class:`Twiddles` of ``root_int`` for 2^log_n points, built on the
+    host with Python ints (no launch); cached per (root, log_n, device)."""
+    key = (field, root_int % field.p, log_n, str(device))
+    hit = _table_cache.get(key)
     if hit is not None:
         return hit
-    step = powers(field, root_int, n2, device=device)[:, :, None]  # root^j2
-    acc = field.ones((n2, 1), device)
-    while acc.shape[-1] < n1:
-        acc = torch.cat([acc, field.mul(acc, step)], dim=-1)
-        step = field.square(step)
-    out = acc[..., :n1].contiguous()
-    _mat_cache[key] = out
-    return out
+    p = field.p
+    h = (log_n + 1) // 2
+
+    def run(base: int, count: int) -> np.ndarray:
+        vals, acc = [], field.params.r % p  # Montgomery form of base^i: base^i * R
+        for _ in range(count):
+            vals.append(acc)
+            acc = acc * base % p
+        return limbs.ints_to_limbs(vals, "cpu").numpy()
+
+    lo, hi = run(root_int % p, 1 << h), run(pow(root_int, 1 << h, p), 1 << (log_n - h))
+    tabs = Twiddles(*(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                      for t in (lo, hi, lo.T, hi.T)))
+    _table_cache[key] = tabs
+    return tabs
+
+
+def twiddle_plain(tables: Twiddles, e: torch.Tensor) -> torch.Tensor:
+    """root^e for an int64 tensor of exponents e < 2^L: one product of the
+    two table entries (the kernel's ``lw_ntt_twiddle``)."""
+    h = tables.lo.shape[1].bit_length() - 1
+    e = e.to(tables.lo.device)
+    return limbs.mont_mul_plain(tables.hi[:, e >> h], tables.lo[:, e & ((1 << h) - 1)])
 
 
 # ---------------------------------------------------------------------------
-# the local transform: kernel 1 and its plain version
+# one pass: the kernel and its plain version
 # ---------------------------------------------------------------------------
 
-def local_ntt_plain(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """Plain version of the local kernel: natural-order ``(8, rows, n)`` in,
-    natural-order spectrum out.  The input is permuted to bit-reversed
-    order, then log2(n) radix-2 DIT stages run, stage s (group size
-    m = 2^s) multiplying by ``tw[j * n/m]``; ``tw`` holds root^0 ..
-    root^(n/2-1)."""
-    n = x.shape[-1]
-    rows = x.shape[1]
-    y = torch.index_select(x, -1, _bitrev_tensor(n, x.device))
-    m = 2
-    while m <= n:
-        half = m // 2
-        y = y.reshape(limbs.LIMBS, rows, n // m, 2, half)
-        w = tw[:, ::n // m][:, :half].reshape(limbs.LIMBS, 1, 1, half)
-        u, v = y[..., 0, :], y[..., 1, :]
-        t = limbs.mont_mul_plain(v, w)
-        y = torch.stack([limbs.add_plain(u, t), limbs.sub_plain(u, t)], dim=3)
-        m *= 2
-    return y.reshape(limbs.LIMBS, rows, n)
+def pass_plan(log_n: int, max_pass_log: int = MAX_PASS_LOG) -> list:
+    """Radix logs s of the passes of a 2^log_n transform: as few passes as
+    ``max_pass_log`` allows, their radices as even as possible, the larger
+    first."""
+    if max_pass_log < 1:
+        raise ValueError("max_pass_log must be at least 1")
+    if log_n == 0:
+        return []
+    count = -(-log_n // max_pass_log)
+    base, extra = divmod(log_n, count)
+    return [base + 1] * extra + [base] * (count - extra)
 
 
-def _local_ntt_cuda(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    n = x.shape[-1]
-    if x.dtype != torch.int32 or not x.is_cuda or n > MAX_LOCAL or n < 2:
-        raise ValueError("local NTT kernel takes (8, rows, 2..2^11) int32 CUDA tensors")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if x.shape[1] == 0:
-        return out
-    native.launch("ntt", "lw_ntt", x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                  x.shape[1], n.bit_length() - 1)
+def _twist_split(s: int) -> int:
+    """log2 of the low twist table per column: the twist of point t is
+    Z_hi[t >> a] * Z_lo[t mod 2^a]."""
+    return (s + 1) // 2
+
+
+def ntt_pass_plain(x: torch.Tensor, tables, ns_log: int, s: int) -> torch.Tensor:
+    """One Stockham pass of radix 2^s over ``(8, rows, N)`` canonical limbs,
+    after passes whose radices multiply to 2^ns_log, in torch ops on any
+    device.  The same pass as the kernel: the same gather
+    (x[j + t*N/2^s]), per-column twist tables Z_lo / Z_hi built from the
+    two-table root powers, bit-reversed radix-2 DIT stages (the first
+    multiplies by one and is skipped) and the same scatter."""
+    lim, rows, n = x.shape
+    log_n = n.bit_length() - 1
+    log_cols = log_n - s
+    r, cols = 1 << s, 1 << log_cols
+    dev = x.device
+    y = x.reshape(lim, rows, r, cols)  # [t, j] holds x[j + t * cols]
+    if ns_log:
+        a = _twist_split(s)
+        i = torch.arange(cols, dtype=torch.int64) & ((1 << ns_log) - 1)
+        shift = log_n - ns_log - s  # the twist root is w^(N / (Ns 2^s))
+        z_lo = twiddle_plain(tables, (i[:, None] * torch.arange(1 << a)) << shift)
+        z_hi = twiddle_plain(tables, (i[:, None] * torch.arange(1 << (s - a))) << (a + shift))
+        t = torch.arange(r, device=dev)
+        tw = limbs.mont_mul_plain(z_hi[:, :, t >> a], z_lo[:, :, t & ((1 << a) - 1)])
+        y = limbs.mont_mul_plain(y, tw.transpose(1, 2).unsqueeze(1))
+    w_r = twiddle_plain(tables, torch.arange(r // 2, dtype=torch.int64) << log_cols)
+    y = torch.index_select(y, 2, _bitrev_tensor(r, dev))
+    for st in range(1, s + 1):
+        half = 1 << (st - 1)
+        y = y.reshape(lim, rows, r >> st, 2, half, cols)
+        u, v = y[:, :, :, 0], y[:, :, :, 1]
+        if st > 1:
+            w = w_r[:, ::r >> st][:, :half].reshape(lim, 1, 1, half, 1)
+            v = limbs.mont_mul_plain(v, w)
+        y = torch.stack([limbs.add_plain(u, v), limbs.sub_plain(u, v)], dim=3)
+    # point k of column j = g*Ns + i goes to g*Ns*r + k*Ns + i
+    y = y.reshape(lim, rows, r, cols >> ns_log, 1 << ns_log)
+    return y.permute(0, 1, 3, 2, 4).reshape(lim, rows, n)
+
+
+def _check_operands(x: torch.Tensor, out: torch.Tensor, tables: Twiddles, ns_log: int,
+                    plan: list) -> None:
+    if (x.dtype != torch.int32 or out.dtype != torch.int32 or not x.is_cuda
+            or x.dim() != 3 or x.shape[0] != limbs.LIMBS or out.shape != x.shape
+            or out.device != x.device or not x.is_contiguous()
+            or not out.is_contiguous() or x.data_ptr() == out.data_ptr()):
+        raise ValueError("NTT pass takes distinct contiguous (8, rows, N) int32 CUDA tensors")
+    n = x.shape[2]
+    if (n & (n - 1) or ns_log < 0 or min(plan) < 1 or ns_log + sum(plan) > n.bit_length() - 1
+            or tables.lo.shape[1] * tables.hi.shape[1] != n
+            or tables.lo_rows.device != x.device):
+        raise ValueError(f"NTT pass: bad passes {plan} after 2^{ns_log}, or tables, for N={n}")
+
+
+def _launch(x: torch.Tensor, out: torch.Tensor, buf, tables: Twiddles, ns_log: int,
+            plan: list) -> torch.Tensor:
+    """The passes ``plan`` in one call of the C entry, one kernel launch
+    each, x into out (through buf when there are two or more)."""
+    if x.shape[1]:
+        native.launch("ntt", "lw_ntt_passes", x.data_ptr(), out.data_ptr(),
+                      None if buf is None else buf.data_ptr(), tables.lo_rows.data_ptr(),
+                      tables.hi_rows.data_ptr(), x.shape[1], x.shape[2].bit_length() - 1,
+                      ns_log, (ctypes.c_int * len(plan))(*plan), len(plan), count=len(plan))
     return out
 
 
-def _on_rows(x: torch.Tensor, field: PrimeField, root_int: int, transform):
-    """``transform(rows, twiddles)`` on the (8, rows, n) view of ``x``."""
-    n = x.shape[-1]
-    if n == 1:
-        return x.clone()
-    tw = powers(field, root_int, n // 2, device=x.device)
-    return transform(x.reshape(limbs.LIMBS, -1, n), tw).reshape(x.shape)
-
-
-def local_ntt(x: torch.Tensor, field: PrimeField, root_int: int) -> torch.Tensor:
-    """Transform of length n <= MAX_LOCAL along the last axis, any batch:
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    transform = local_ntt_plain if x.device.type == "cpu" else _local_ntt_cuda
-    return _on_rows(x, field, root_int, transform)
-
-
-def _local_plain_any(x: torch.Tensor, field: PrimeField, root_int: int) -> torch.Tensor:
-    return _on_rows(x, field, root_int, local_ntt_plain)
+def ntt_pass(x: torch.Tensor, out: torch.Tensor, tables: Twiddles, ns_log: int,
+             s: int) -> torch.Tensor:
+    """One launch of the pass kernel (``csrc/ntt.cu``): the pass of
+    :func:`ntt_pass_plain` from ``x`` into ``out``, both ``(8, rows, N)``
+    contiguous int32 CUDA tensors."""
+    _check_operands(x, out, tables, ns_log, [s])
+    return _launch(x, out, None, tables, ns_log, [s])
 
 
 # ---------------------------------------------------------------------------
 # core transform
 # ---------------------------------------------------------------------------
 
-def _four_step(x, field, root_int, max_local, local, mul):
+def _transform(x: torch.Tensor, field: PrimeField, root_int: int, max_pass_log: int,
+               on_card: bool) -> torch.Tensor:
     n = x.shape[-1]
-    if n <= max_local:
-        return local(x, field, root_int)
     log_n = n.bit_length() - 1
-    n1 = 1 << ((log_n + 1) // 2)
-    n2 = n // n1
-    batch = tuple(x.shape[1:-1])
-    xt = x.reshape((limbs.LIMBS,) + batch + (n1, n2)).transpose(-1, -2).contiguous()
-    a = _four_step(xt, field, pow(root_int, n2, field.p), max_local, local, mul)
-    t = _twiddle_matrix(field, root_int, n2, n1, x.device)
-    t = t.reshape((limbs.LIMBS,) + (1,) * len(batch) + (n2, n1))
-    bt = mul(a, t).transpose(-1, -2).contiguous()  # (..., k1, j2)
-    c = _four_step(bt, field, pow(root_int, n1, field.p), max_local, local, mul)
-    return c.transpose(-1, -2).contiguous().reshape((limbs.LIMBS,) + batch + (n,))
+    plan = pass_plan(log_n, max_pass_log)
+    if not plan:
+        return x.clone()
+    tables = twiddle_tables(field, root_int, log_n, x.device)
+    cur = x.reshape(limbs.LIMBS, -1, n)
+    if on_card:
+        cur = cur.contiguous()
+        out = torch.empty_like(cur)
+        _check_operands(cur, out, tables, 0, plan)
+        buf = torch.empty_like(cur) if len(plan) > 1 else None
+        return _launch(cur, out, buf, tables, 0, plan).reshape(x.shape)
+    ns_log = 0
+    for s in plan:
+        cur = ntt_pass_plain(cur, tables, ns_log, s)
+        ns_log += s
+    return cur.reshape(x.shape)
 
 
 def fft_with_root(x: torch.Tensor, field: PrimeField, root_int: int,
-                  max_local: int = MAX_LOCAL) -> torch.Tensor:
+                  max_pass_log: int = MAX_PASS_LOG) -> torch.Tensor:
     """Natural-order transform along the last axis with an explicit
-    primitive root (any power-of-two length, any batch dims).
-
-    Above ``max_local`` points it splits four-step, N = N1*N2 with
-    N1 = 2^ceil(log2(N)/2):
-    X[k2*N1 + k1] = sum_j2 w_N2^(j2 k2) [w^(j2 k1) sum_j1 w_N1^(j1 k1) x[j1*N2 + j2]]
-    (legs A[j2, k1] and C[k1, k2]), recursing on both legs."""
-    return _four_step(x, field, root_int, max_local, local_ntt, limbs.mont_mul)
+    primitive root (any power-of-two length, any batch dims): the passes of
+    :func:`pass_plan`, each one kernel launch on a CUDA tensor and
+    :func:`ntt_pass_plain` on a CPU tensor."""
+    return _transform(x, field, root_int, max_pass_log, x.device.type != "cpu")
 
 
 def fft_with_root_plain(x: torch.Tensor, field: PrimeField, root_int: int,
-                        max_local: int = MAX_LOCAL) -> torch.Tensor:
-    """:func:`fft_with_root` with the plain local transform and multiply on
-    any device: what the kernel path is held against on the card."""
-    return _four_step(x, field, root_int, max_local, _local_plain_any,
-                      limbs.mont_mul_plain)
+                        max_pass_log: int = MAX_PASS_LOG) -> torch.Tensor:
+    """:func:`fft_with_root` through :func:`ntt_pass_plain` on any device:
+    the CPU path, which the kernel path is held against on the card."""
+    return _transform(x, field, root_int, max_pass_log, False)
 
 
 def _check(field: PrimeField, n: int) -> int:
@@ -246,20 +324,21 @@ def _check(field: PrimeField, n: int) -> int:
     return order
 
 
-def fft(coeffs: torch.Tensor, field: PrimeField, max_local: int = MAX_LOCAL):
+def fft(coeffs: torch.Tensor, field: PrimeField, max_pass_log: int = MAX_PASS_LOG):
     """Forward transform: natural-order coefficients -> natural-order
     evaluations P(w^i) over the size-n domain (n = last-axis length)."""
     order = _check(field, coeffs.shape[-1])
     return fft_with_root(coeffs, field, field.params.primitive_root_of_unity(order),
-                         max_local)
+                         max_pass_log)
 
 
-def ifft(evals: torch.Tensor, field: PrimeField, max_local: int = MAX_LOCAL):
-    """Inverse transform: natural-order evaluations -> coefficients."""
+def ifft(evals: torch.Tensor, field: PrimeField, max_pass_log: int = MAX_PASS_LOG):
+    """Inverse transform: natural-order evaluations -> coefficients (the
+    1/n scaling is one field launch after the passes)."""
     n = evals.shape[-1]
     order = _check(field, n)
     root = field.params.primitive_root_of_unity(order)
-    out = fft_with_root(evals, field, pow(root, field.p - 2, field.p), max_local)
+    out = fft_with_root(evals, field, pow(root, field.p - 2, field.p), max_pass_log)
     return field.mul(out, field.constant(pow(n, field.p - 2, field.p),
                                          (1,) * (out.dim() - 1), out.device))
 

@@ -495,8 +495,8 @@ class Prover:
         return openings
 
 
-def prove(air_class, trace, pub_inputs, proof_options, transcript, *, device):
+def prove(air_class, trace, pub_inputs, proof_options, transcript, *, device="cuda"):
     """``IsStarkProver::prove`` parity: prove on ``device`` (the trace is
-    moved there)."""
+    moved there), the card unless the caller asks for ``"cpu"``."""
     return Prover(air_class, device).prove(trace, pub_inputs, proof_options,
                                            transcript)

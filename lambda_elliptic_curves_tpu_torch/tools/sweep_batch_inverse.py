@@ -19,10 +19,10 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 from .. import native
+from ._timing import cuda_ms, random_field, smi
 
 LENGTHS = (8, 16, 32, 64, 128, 256, 512)
 LOG_SIZES = range(18, 25)
@@ -67,21 +67,6 @@ def _build():
     return lib
 
 
-def _cuda_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def sweep(lib, log_n: int, gen) -> dict:
     """ms by chunk length at n = 2^log_n, random values below 2^251 < p."""
     import torch
@@ -89,9 +74,7 @@ def sweep(lib, log_n: int, gen) -> dict:
     from ..ops import limbs
 
     n = 1 << log_n
-    x = torch.randint(-2**31, 2**31, (8, n), generator=gen, device=gen.device,
-                      dtype=torch.int64).to(torch.int32)
-    x[7] &= 0x07FFFFFF
+    x = random_field((n,), gen)
     want = limbs.batch_inverse_plain(x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
@@ -108,7 +91,7 @@ def sweep(lib, log_n: int, gen) -> dict:
         run(chunks)
         if not torch.equal(out, want):
             raise RuntimeError(f"L = {length} at n = 2^{log_n} differs from the plain version")
-        ms[length] = _cuda_ms(lambda: run(chunks), 10 if log_n <= 20 else 3)
+        ms[length] = cuda_ms(lambda: run(chunks), 10 if log_n <= 20 else 3)
     return {"n": f"2^{log_n}", "picked_L": n // lib.sweep_chunks_for(n),
             "fastest_L": min(ms, key=ms.get), "ms_by_L": ms}
 
@@ -119,9 +102,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_batch_inverse: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
+    card = smi("name,power.limit")
     print(card, flush=True)
     lib = _build()
     gen = torch.Generator(device="cuda").manual_seed(2)

@@ -106,20 +106,71 @@ def test_field_kernel_broadcast_operand(dev):
                        limbs.mont_mul_plain(a, c))
 
 
-def test_local_ntt_kernel_matches_plain(dev):
-    for log_n in range(1, 12):
+@pytest.mark.parametrize("rows", [1, 2, 4])
+def test_ntt_pass_kernel_matches_plain(dev, rows):
+    """Every pass of every transform 2^1 .. 2^14 (passes of radix up to
+    2^7, and up to 2^3 so that each size takes several), bitwise against
+    ``ntt_pass_plain`` on the same input; the prover's batches."""
+    for log_n in range(1, 15):
         n = 1 << log_n
-        x = Stark252.array(_ints(log_n, 4 * n - 6), "cpu").reshape(8, 4, n)
+        vals = _ints(log_n, max(rows * n - 6, 0))[:rows * n]
+        x = Stark252.array(vals, "cpu").reshape(8, rows, n).to(dev)
         root = Stark252.params.primitive_root_of_unity(log_n)
-        assert torch.equal(_on_card(ntt.local_ntt, x.to(dev), Stark252, root),
-                           ntt.local_ntt(x, Stark252, root)), n
+        tables = ntt.twiddle_tables(Stark252, root, log_n, dev)
+        for max_pass_log in (3, ntt.MAX_PASS_LOG):
+            cur, ns_log = x, 0
+            for s in ntt.pass_plan(log_n, max_pass_log):
+                got = ntt.ntt_pass(cur, torch.empty_like(cur), tables, ns_log, s)
+                assert torch.equal(got, ntt.ntt_pass_plain(cur, tables, ns_log, s)), \
+                    (log_n, max_pass_log, s)
+                cur, ns_log = got, ns_log + s
+            assert torch.equal(cur, ntt.fft_with_root(x, Stark252, root, max_pass_log))
 
 
-def test_four_step_fft_on_card_matches_cpu(dev):
+def test_fft_on_card_matches_cpu(dev):
     x = Stark252.array(_ints(99, (1 << 13) - 6), "cpu")
-    got = _on_card(ntt.fft, x.to(dev), Stark252)
-    assert torch.equal(got, ntt.fft(x, Stark252))
-    assert torch.equal(_on_card(ntt.ifft, got.to(dev), Stark252), x)
+    for max_pass_log in (2, 5, ntt.MAX_PASS_LOG):
+        got = _on_card(ntt.fft, x.to(dev), Stark252, max_pass_log)
+        assert torch.equal(got, ntt.fft(x, Stark252, max_pass_log))
+        assert torch.equal(_on_card(ntt.ifft, got.to(dev), Stark252, max_pass_log), x)
+
+
+def test_fft_launches_only_the_pass_kernel(dev):
+    """A warm fft on the card is one pass-kernel launch per pass and no
+    other device work (no transposes, gathers or twiddle multiplies); the
+    ifft adds one field launch for 1/n."""
+    from lambda_elliptic_curves_tpu_torch.tools._timing import traced_kernels
+
+    x = Stark252.array(_ints(3, (1 << 13) - 6), "cpu").to(dev)
+    passes = len(ntt.pass_plan(13))
+    ntt.ifft(ntt.fft(x, Stark252), Stark252)  # warm: tables built
+    torch.cuda.synchronize()
+    for fn, field_launches in ((ntt.fft, 0), (ntt.ifft, 1)):
+        def counted():
+            native.launches.update({k: 0 for k in native.launches})
+            fn(x, Stark252)
+            assert native.launches["ntt"] == passes
+            assert native.launches["field"] == field_launches
+
+        traces = traced_kernels(counted, passes + field_launches)
+        for names in traces:
+            assert all("ntt_pass_kernel" in k or "field_op_kernel" in k for k in names), names
+        names = traces[-1]
+        assert sum("ntt_pass_kernel" in k for k in names) == passes, traces
+        assert sum("field_op_kernel" in k for k in names) == field_launches, traces
+
+
+def test_ntt_pass_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = Stark252.array(_ints(5, 58), "cpu").reshape(8, 1, 64).to(dev)
+    tables = ntt.twiddle_tables(Stark252, Stark252.params.primitive_root_of_unity(6), 6, dev)
+    bad = [(x.cpu(), torch.empty_like(x.cpu())), (x, x),
+           (x.to(torch.int64), torch.empty_like(x, dtype=torch.int64)),
+           (x.transpose(1, 2), torch.empty(8, 64, 1, dtype=torch.int32, device=dev))]
+    for a, b in bad:
+        with pytest.raises(ValueError):
+            ntt.ntt_pass(a, b, tables, 0, 6)
+    with pytest.raises(ValueError):
+        ntt.ntt_pass(x, torch.empty_like(x), tables, 2, 6)  # radices beyond 2^6
 
 
 def test_keccak_kernels_match_plain(dev):
