@@ -12,8 +12,10 @@ Phases (one result line each, with its seconds):
      spot checks, and kernel / plain timings at the prover's shapes; 2b2
      holds batch inversion against its plain version at the prover's
      shapes ((8, 2, N) and (8, 4, N) for N = 2^18 and 2^22), ragged sizes
-     and a 3-D batch, with zeros, and times it in turns against Fermat
-     (a^(p-2)) at 2^18, 2^20, 2^23 and 2^24 elements; 2c holds every NTT
+     and a 3-D batch, with zeros, with the exact launches of each call,
+     times it in turns against Fermat (a^(p-2)) at 2^18, 2^20, 2^23 and
+     2^24 elements (the product rate is Fermat's), and times a call on one
+     element (one launch: the one inversion's latency); 2c holds every NTT
      pass of every size 2^1 .. 2^22 at (8, 1|2|4, N) against
      ``ntt_pass_plain``, and the whole fft against the CPU path up to 2^14;
      2d times fft at 2^14 .. 2^22 and checks that fft 2^22 is its pass
@@ -28,7 +30,8 @@ Phases (one result line each, with its seconds):
      tables of the new sizes), the device bytes of every NTT cache after it,
      then a timed prove (launch counts reset just before it) and verify
   6. launch count of each kernel during the timed proves of phases 4 and 5
-     (each > 0, and none of the Fermat kernel ``field_pow``)
+     (each > 0; batch inversion exactly 6 at each size, two calls of 3
+     launches; none of the Fermat kernel ``field_pow``)
   7. a torch.profiler trace of one warm prove at 2^16 and at 2^20 rows:
      device busy time, idle share, time and launches by kernel
 
@@ -79,8 +82,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT_PIPE_PER_CLOCK_PER_SM = 64
 INT_ISSUE_PER_CLOCK_PER_SM = 128
 # 32-bit integer instructions per operation, estimated from the sources, as
-# (multiply-adds, logic ops and shifts, other): a CIOS Montgomery product
-# (mont.cuh) is 170: 64 widening products of a*b and 24 of m*p (p's five
+# (multiply-adds, logic ops and shifts, other): a Montgomery product counts
+# 170: 64 widening products of a*b and 24 of the reduction's m*p (p's five
 # zero limbs fold away), carry adds, and the final conditional subtraction
 # (8 selects); an add or sub with its reduction is 24, 8 of them selects;
 # a keccak-f permutation is 3-input logic ops and funnel shifts (per round:
@@ -275,11 +278,12 @@ def phase_kernels(state):
     def run_inverse():
         # the prover's shapes, boundary terms (8, 2, N) and DEEP (8, 4, N)
         # with N the LDE size (2^18 at 2^16 rows, 2^22 at 2^20 rows), then
-        # ragged sizes and a 3-D batch, so that every chunk length the kernel
-        # picks (16 to 256) is held against the plain version; zeros
+        # ragged sizes and a 3-D batch, each two levels of tiles (3 launches)
+        # at its own walk length (8 to 128 elements a thread); zeros
         # scattered, in a run, first and last
-        shapes = [(2, 1 << 18), (4, 1 << 18), (2, 1 << 22), (4, 1 << 22),
-                  ((1 << 22) + 5,), ((1 << 20) - 3,), (3, 5, 7001)]
+        launches = {(2, 1 << 18): 3, (4, 1 << 18): 3, (2, 1 << 22): 3, (4, 1 << 22): 3,
+                    ((1 << 22) + 5,): 3, ((1 << 20) - 3,): 3, (3, 5, 7001): 3}
+        shapes = list(launches)
         err = 0
         for shape in shapes:
             n = math.prod(shape)
@@ -288,7 +292,11 @@ def phase_kernels(state):
             flat[:, 5000:5300] = 0
             flat[:, -1] = 0
             a = flat.reshape((8,) + shape)
+            native.launches["field_inv"] = 0
             got = f.batch_inverse(a)
+            check(native.launches["field_inv"] == launches[shape],
+                  f"batch inverse at {shape}: {native.launches['field_inv']} launches, "
+                  f"not {launches[shape]}")
             err = max(err, max_abs_err(got, limbs.batch_inverse_plain(a)))
             check(err == 0, f"batch inverse kernel != plain at {shape}")
             idx = torch.cat([torch.arange(0, n, n // 61)[:62],
@@ -319,14 +327,28 @@ def phase_kernels(state):
             times[log_n] = {"kernel_ms": [k1, k2], "fermat_ms": [f1, f2], "bound_ms": b_ms,
                             "bound_by": b_by, "fermat_bound_ms": fb_ms, "fermat_bound_by": fb_by,
                             "speedup": (f1 + f2) / (k1 + k2)}
+        # Fermat's operations per second at 2^24: a blend of 252 squarings
+        # and 194 products per element, not the product's rate (the
+        # squaring is the faster; tools/sweep_batch_inverse.py times each);
+        # and one element: one launch, whose time is the one inversion's
+        # latency and the walks and trees around it
+        n24 = xs[24].shape[1]
+        fermat_op_rate = 446 * n24 / (sum(times[24]["fermat_ms"]) / 2 * 1e-3)
+        one = xs[18][:, 5:6].contiguous()
+        one_us = cuda_ms(lambda: f.batch_inverse(one), 50) * 1e3
+        check(int(f.to_ints(f.batch_inverse(one))[0]) * int(f.to_ints(one)[0]) % f.p == 1,
+              "batch inverse of one element is wrong")
         ms = sum(times[20]["kernel_ms"]) / 2
         plain_ms = cuda_ms(lambda: limbs.batch_inverse_plain(xs[20]), 1)
         rec["field_inv"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=times[20]["bound_ms"], bound_by=times[20]["bound_by"],
                                 library_ms=None, shape="batch_inverse, 2^20 elements")
         state["inv_times"] = times
+        state["inv_extra"] = {"one_element_us": one_us, "fermat_ops_per_s_2^24": fermat_op_rate}
         return (f"{len(shapes)} shapes bitwise equal to plain ("
-                + ", ".join(str(s) for s in shapes) + "), 64 host spot checks each; "
+                + ", ".join(str(s) for s in shapes) + "), 64 host spot checks and the exact "
+                f"launches each; one element {one_us:.2f} us; Fermat 2^24 "
+                f"{fermat_op_rate:.4g} operations/s (252 squarings + 194 products); "
                 + ", ".join(
                     f"2^{k}: kernel {t['kernel_ms'][0]:.4f}/{t['kernel_ms'][1]:.4f} ms, Fermat "
                     f"{t['fermat_ms'][0]:.3f}/{t['fermat_ms'][1]:.3f} ms ({t['speedup']:.1f}x), "
@@ -554,6 +576,11 @@ def phase_launches(state):
                       f"kernel {name} was not launched by the {rows}-row prove")
             check(counts.get("field_pow", 0) == 0, f"the {rows}-row prove inverted by Fermat "
                   "(field_pow) instead of the batch-inverse kernel")
+            # two calls, (8, 2, N) and (8, 4, N) with N the LDE size (2^18 at
+            # 2^16 rows, 2^22 at 2^20 rows), of two levels, 3 launches, each
+            want = {"2^16": 6, "2^20": 6}[rows]
+            check(counts.get("field_inv") == want, f"the {rows}-row prove launched batch "
+                  f"inversion {counts.get('field_inv')} times, not {want}")
         for name in KERNELS:
             state["kernels"][name]["launches"] = state["launches"][name]
         return json.dumps({"2^16": state["launches"], "2^20": state["launches_20"]})
@@ -627,7 +654,8 @@ def main() -> int:
                           for k, t in state["fft_times"].items()},
                "interpolate_2^22_ms": state["interp_22_ms"],
                "field": state["field_extra"],
-               "batch_inverse": {f"2^{k}": t for k, t in state["inv_times"].items()},
+               "batch_inverse": {**{f"2^{k}": t for k, t in state["inv_times"].items()},
+                                 **state["inv_extra"]},
                "prove_2^16": state["prove_16"], "prove_2^20": state["prove_20"],
                "launches_2^16": state["launches"], "launches_2^20": state["launches_20"],
                "profile": state["profile"]}

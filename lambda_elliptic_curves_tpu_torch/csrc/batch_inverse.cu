@@ -1,5 +1,5 @@
-// Stark252 batch inversion by Montgomery's trick on (8, n) limb planes
-// (kernel 4).
+// Stark252 batch inversion by a tiled Montgomery trick on (8, n) limb
+// planes (kernel 4).
 //
 // Replaces XLA code, not a Pallas kernel: the JAX package's
 // lambda_elliptic_curves_tpu/ops/limbs.py:895 batch_inverse (an
@@ -8,41 +8,77 @@
 // Same values, bit for bit: each element's inverse in Montgomery form
 // (R = 2^256), zeros mapping to zero.
 //
-// Bound on this card: at large n the 32-bit integer multiply rate.  The
-// trick needs 3 Montgomery products per element (forward prefix, and
-// inverse times prefix and inverse times element going back), each about
-// 170 integer instructions, against 64 bytes read and written; the one
-// Fermat inversion per chunk adds 446 products over the chunk's elements.
-// At small n, latency: one thread runs about 3L + 446 dependent products.
+// Bound on this card: at large n the integer multiply rate, then the
+// bytes.  The trick needs 3 Montgomery products per element (a prefix going
+// forward; inverse times prefix and inverse times element going back) and
+// moves 64 bytes per element at least.  This design stores each prefix in
+// out and reads it back (160 bytes per element) rather than rebuild the
+// prefixes from x (96 bytes, but a fourth product): on an H100 the
+// products run at about 53 G/s, so at 2^24 elements three take 0.95 ms and
+// four 1.27 ms, against 0.80 ms and 0.48 ms of bytes (PERF.md).  At small
+// n, latency: the walks, the trees and the one inversion (lw_mont_inv).
 //
-// Design: one thread per chunk walks its elements c, c + C, ... (so that
-// neighbouring threads touch neighbouring words of every plane) forward
-// with a running product in registers, writing each prefix to out (out
-// doubles as scratch, nothing else is allocated), inverts the chunk total
-// by Fermat in the same thread, and walks back (batch_inverse.cuh).  The
-// chunk length L = n / C is chosen from n (lw_batch_inverse_chunks):
-// enough threads to fill the card, and L large enough that the Fermat is
-// amortised.  One launch, no synchronise.
+// Design (batch_inverse.cuh): tiles of T x L elements, T = 256 threads per
+// block and L elements per thread (8 to 128, growing with n), strided by T
+// so that every limb plane is read in runs of T words; each thread loads
+// its next element before the product of this one; the threads' totals
+// meet in a binary tree in shared memory, and the tile totals form the
+// next level, up to a level of one tile, where the one inversion of the
+// call happens.  Launches per call: 2 levels - 1 (1 up to one tile, 3 for
+// every size the prover inverts, 5 beyond 2^30 elements); the levels above
+// the first live in a scratch tensor of 2n / (T L) elements that the
+// caller allocates.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "batch_inverse.cuh"
 
-__global__ void batch_inverse_kernel(const int32_t* x, int32_t* out, long n,
-                                     long chunks) {
-    long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= chunks) return;
-    lw_batch_inverse_chunk(x, out, n, c, chunks);
+// One kernel per mode, so that the up and down passes carry neither the
+// inversion's code nor its registers.  A down pass takes its tiles last
+// first: the up pass ended on those, and some of their elements and
+// prefixes are still in L2.
+template <int MODE>
+__global__ void __launch_bounds__(LW_INV_THREADS)
+batch_inverse_kernel(LwInvLevel V) {
+    extern __shared__ uint32_t sm[];
+    const long b = MODE == LW_INV_DOWN ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    lw_inv_block(V, MODE, b, threadIdx.x, blockDim.x, sm);
 }
 
-// (8, n) planes x into out (both contiguous, distinct).
-extern "C" int lw_field_batch_inverse(const int32_t* x, int32_t* out, long n,
-                                      void* stream) {
-    if (n > 0) {
-        long chunks = lw_batch_inverse_chunks(n);
-        long blocks = (chunks + LW_INV_THREADS - 1) / LW_INV_THREADS;
-        batch_inverse_kernel<<<blocks, LW_INV_THREADS, 0, (cudaStream_t)stream>>>(
-            x, out, n, chunks);
+// every launch of the call, T threads per block and L elements per thread
+// (tools/sweep_batch_inverse.py builds its own entry on it to time others)
+static int lw_inv_run(const int32_t* x, int32_t* out, int32_t* scratch, long n, int T, int L,
+                      void* stream) {
+    if (n < 0 || !lw_inv_shape_ok(T, L)) return (int)cudaErrorInvalidValue;
+    const LwInvPlan P = lw_inv_plan(n, T, L);
+    for (int i = 0; i < P.launches; i++) {
+        const LwInvLaunch l = lw_inv_launch(P, i, x, out, scratch, T, L);
+        const size_t smem = 4 * lw_inv_smem_words(T);
+        cudaStream_t st = (cudaStream_t)stream;
+        const long blocks = l.lev.tiles;
+        if (l.mode == LW_INV_UP)
+            batch_inverse_kernel<LW_INV_UP><<<blocks, T, smem, st>>>(l.lev);
+        else if (l.mode == LW_INV_TOP)
+            batch_inverse_kernel<LW_INV_TOP><<<blocks, T, smem, st>>>(l.lev);
+        else
+            batch_inverse_kernel<LW_INV_DOWN><<<blocks, T, smem, st>>>(l.lev);
+        cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
     }
     return (int)cudaGetLastError();
+}
+
+// Launches that lw_field_batch_inverse makes for n elements, and the int32
+// words of scratch it needs.
+extern "C" int lw_field_batch_inverse_plan(long n, long* scratch_words) {
+    const LwInvPlan P = lw_inv_plan(n, LW_INV_THREADS, lw_inv_walk(n));
+    *scratch_words = P.scratch_words;
+    return P.launches;
+}
+
+// (8, n) planes x into out (both contiguous, distinct), scratch of
+// lw_field_batch_inverse_plan's words.
+extern "C" int lw_field_batch_inverse(const int32_t* x, int32_t* out, int32_t* scratch, long n,
+                                      void* stream) {
+    return lw_inv_run(x, out, scratch, n, LW_INV_THREADS, lw_inv_walk(n), stream);
 }

@@ -1,34 +1,133 @@
-// Montgomery's trick over one strided chunk of a Stark252 batch: the walk
-// that each thread of batch_inverse.cu runs, kept in a header so that the
-// same code is compiled for the host and checked against Python integers
-// without a card (tests/test_torch_batch_inverse.py).
+// Stark252 batch inversion as a tiled Montgomery trick: the work of one
+// thread block of batch_inverse.cu, and the schedule of its launches, kept
+// in a header so that g++ compiles the same code for the host
+// (tests/test_torch_batch_inverse.py).
 //
-// x and out are (8, n) int32 limb planes (plane stride n), values in
-// Montgomery form.  Chunk c of C holds the elements c, c + C, c + 2C, ...
-// below n, so at each step neighbouring chunks touch neighbouring words of
-// every plane.
+// Each loop over threads below runs `for (t = tid; t < T; t += nt)` over
+// iterations that touch distinct shared-memory words, with LW_INV_SYNC
+// between loops, so the block's work compiled for the host and called with
+// tid = 0, nt = 1 for every block in turn computes what the card computes.
+//
+// Levels.  Level 0 holds the n elements, (8, n) int32 limb planes in
+// Montgomery form.  A tile is T x L elements: thread t of tile b walks the
+// elements b T L + j T + t for j < L, so that at each step neighbouring
+// threads touch neighbouring words of every plane.  The product of tile
+// b's nonzero elements is element b of level 1, and so on up to a level
+// that fits in one tile (the top).  Zeros count as one and map to zero.
+// The launches (lw_inv_launch), each one per level:
+//  * up, for each level below the top: every thread walks forward with a
+//    running product and stores each prefix to out; the threads' totals
+//    are multiplied pairwise up a binary tree in shared memory, and the
+//    root, the tile's total, becomes an element of the next level;
+//  * top: the same, then one inversion of the root (lw_mont_inv), then as
+//    a down pass;
+//  * down, for each level from the top down: the tree is built again from
+//    each thread's last prefix, the root's inverse is the next level's
+//    output, and inverses go down the tree (inv(left) = inv(parent) *
+//    right, inv(right) = inv(parent) * left); each thread walks back from
+//    its leaf's inverse r: out = r * (prefix before), r = r * x.
+// Products per element: 1 forward, 2 back, and about 4 / L for the trees.
 #pragma once
 
 #include "mont.cuh"
 
-// Threads per block of the kernel.
-#define LW_INV_THREADS 128
+#ifdef __CUDA_ARCH__
+#define LW_INV_SYNC() __syncthreads()
+#else
+#define LW_INV_SYNC() ((void)0)
+#endif
 
-// Chunks (a thread each) for a batch of n.  A thread runs about 3L + 446
-// dependent products for its L elements, and all threads together about
-// n (3 + 446 / L).  Below 2^19 elements the walk's latency rules and L is
-// 16 (2^14 threads at 2^18); the length then doubles with n up to 256
-// (2^16 threads at 2^24), where the one Fermat per chunk adds 1.7 products
-// per element to the trick's 3.  The steps are the fastest lengths of a
-// sweep over L at every n = 2^18 .. 2^24 on an H100
-// (tools/sweep_batch_inverse.py, PERF.md).
-LW_HD long lw_batch_inverse_chunks(long n) {
-    long len = n < (1L << 19) ? 16
-             : n < (1L << 20) ? 32
-             : n < (1L << 22) ? 64
-             : n < (1L << 23) ? 128 : 256;
-    return (n + len - 1) / len;
+#define LW_INV_MAX_LEVELS 64
+// The kernel's tile: T threads per block and L elements per thread from the
+// batch size, with no register cap; the fastest of
+// tools/sweep_batch_inverse.py's sweep at n = 2^18 .. 2^24 on an H100
+// (PERF.md).
+#define LW_INV_THREADS 256
+
+LW_HD int lw_inv_walk(long n) {
+    return n < (1L << 19) ? 8 : n < (1L << 21) ? 16 : n < (1L << 22) ? 32 : n < (1L << 23) ? 64 : 128;
 }
+
+enum { LW_INV_UP = 0, LW_INV_TOP = 1, LW_INV_DOWN = 2 };
+
+struct LwInvLevel {
+    const int32_t* x;         // (8, m) this level's elements
+    int32_t* out;             // (8, m): running prefixes, then the inverses
+    int32_t* next;            // (8, tiles) up: the tile totals (the next level's x)
+    const int32_t* next_inv;  // (8, tiles) down: their inverses (the next level's out)
+    long m, tiles;
+    int T, L;
+};
+
+struct LwInvPlan {
+    int levels, launches;
+    long m[LW_INV_MAX_LEVELS];  // elements of each level
+    long scratch_words;         // levels 1 and up: x and out, 16 m words each
+};
+
+struct LwInvLaunch {
+    LwInvLevel lev;  // a grid of lev.tiles blocks
+    int mode;
+};
+
+// T threads per block (a power of two, for the tree), L elements each
+LW_HD bool lw_inv_shape_ok(int T, int L) {
+    return T >= 1 && T <= LW_INV_THREADS && (T & (T - 1)) == 0 && L >= 1 && (long)T * L >= 2;
+}
+
+LW_HD LwInvPlan lw_inv_plan(long n, int T, int L) {
+    LwInvPlan P;
+    const long tile = (long)T * L;
+    P.m[0] = n;
+    P.levels = 1;
+    P.scratch_words = 0;
+    while (P.m[P.levels - 1] > tile) {
+        P.m[P.levels] = (P.m[P.levels - 1] + tile - 1) / tile;
+        P.scratch_words += 2L * LW_LIMBS * P.m[P.levels];
+        P.levels++;
+    }
+    P.launches = n > 0 ? 2 * P.levels - 1 : 0;
+    return P;
+}
+
+// level k >= 1 in scratch: its elements, then its output, (8, m_k) each
+LW_HD int32_t* lw_inv_scratch(const LwInvPlan& P, int k, int32_t* scratch) {
+    long off = 0;
+    for (int j = 1; j < k; j++) off += 2L * LW_LIMBS * P.m[j];
+    return scratch + off;
+}
+
+// launch i of P.launches: up at levels 0 .. top-1, the top, down at top-1 .. 0
+LW_HD LwInvLaunch lw_inv_launch(const LwInvPlan& P, int i, const int32_t* x, int32_t* out,
+                                int32_t* scratch, int T, int L) {
+    const int top = P.levels - 1;
+    const int k = i <= top ? i : 2 * top - i;
+    LwInvLaunch r;
+    r.mode = i < top ? LW_INV_UP : (i == top ? LW_INV_TOP : LW_INV_DOWN);
+    LwInvLevel& V = r.lev;
+    V.x = x;
+    V.out = out;
+    if (k > 0) {
+        int32_t* level = lw_inv_scratch(P, k, scratch);
+        V.x = level;
+        V.out = level + LW_LIMBS * P.m[k];
+    }
+    V.next = nullptr;
+    V.next_inv = nullptr;
+    V.tiles = 1;
+    if (k < top) {
+        V.next = lw_inv_scratch(P, k + 1, scratch);
+        V.next_inv = V.next + LW_LIMBS * P.m[k + 1];
+        V.tiles = P.m[k + 1];
+    }
+    V.m = P.m[k];
+    V.T = T;
+    V.L = L;
+    return r;
+}
+
+// words of shared memory a block takes: the tree's 2T nodes, limb-major
+LW_HD long lw_inv_smem_words(int T) { return 2L * LW_LIMBS * T; }
 
 LW_HD void lw_load_plane(const int32_t* x, long n, long i, uint32_t v[LW_LIMBS]) {
 #pragma unroll
@@ -40,46 +139,145 @@ LW_HD void lw_store_plane(int32_t* x, long n, long i, const uint32_t v[LW_LIMBS]
     for (int k = 0; k < LW_LIMBS; k++) x[k * n + i] = (int32_t)v[k];
 }
 
-// out[:, i] = x[:, i]^-1 (Montgomery form; zero maps to zero) for the
-// elements i = c, c + chunks, ... below n.  out doubles as scratch: the
-// forward pass writes the running product after each element there, the
-// backward pass overwrites it with the inverses.  Zeros count as one.
-LW_HD void lw_batch_inverse_chunk(const int32_t* x, int32_t* out, long n,
-                                  long c, long chunks) {
-    if (c >= n) return;
-    uint32_t run[LW_LIMBS], v[LW_LIMBS];
-    lw_mont_one(run);
-    long last = c;
-    for (long i = c; i < n; i += chunks) {
-        lw_load_plane(x, n, i, v);
-        if (!lw_is_zero(v)) lw_mont_mul(run, v, run);
-        lw_store_plane(out, n, i, run);
-        last = i;
-    }
-    // run is a product of nonzero values, so it is not zero: Fermat,
-    // run^(p-2) with p - 2 = 2^251 + 2^196 + 2^192 - 1 (252 bits)
-    const uint32_t p_minus_2[LW_LIMBS] = {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
-                                         0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
-                                         16u, 0x08000000u};
-    uint32_t inv[LW_LIMBS];
-    lw_mont_pow(run, p_minus_2, 252, inv);
-    // inv = (product up to element i)^-1; the product before i is the
-    // prefix that the forward pass left at i - chunks
-    for (long i = last; i >= c; i -= chunks) {
-        lw_load_plane(x, n, i, v);
-        if (lw_is_zero(v)) {
-            const uint32_t zero[LW_LIMBS] = {0, 0, 0, 0, 0, 0, 0, 0};
-            lw_store_plane(out, n, i, zero);
-            continue;
+LW_HD void lw_inv_node_get(const uint32_t* sm, int T, int node, uint32_t v[LW_LIMBS]) {
+#pragma unroll
+    for (int k = 0; k < LW_LIMBS; k++) v[k] = sm[k * 2 * T + node];
+}
+
+LW_HD void lw_inv_node_put(uint32_t* sm, int T, int node, const uint32_t v[LW_LIMBS]) {
+#pragma unroll
+    for (int k = 0; k < LW_LIMBS; k++) sm[k * 2 * T + node] = v[k];
+}
+
+// elements in thread t's walk of tile b
+LW_HD int lw_inv_count(const LwInvLevel& V, long b, int t) {
+    const long first = b * V.T * V.L + t;
+    if (first >= V.m) return 0;
+    const long c = (V.m - first + V.T - 1) / V.T;
+    return c < V.L ? (int)c : V.L;
+}
+
+// each thread's running product of its nonzero elements, each prefix
+// stored to out, the total to its leaf T + t; the next element is loaded
+// before the product of this one
+LW_HD void lw_inv_forward(const LwInvLevel& V, long b, int tid, int nt, uint32_t* sm) {
+    const long base = b * V.T * V.L;
+    for (int t = tid; t < V.T; t += nt) {
+        uint32_t run[LW_LIMBS], v[LW_LIMBS], next[LW_LIMBS];
+        lw_mont_one(run);
+        bool started = false;  // run is still one: copy, do not multiply
+        const int cnt = lw_inv_count(V, b, t);
+        if (cnt) lw_load_plane(V.x, V.m, base + t, next);
+        for (int j = 0; j < cnt; j++) {
+            const long i = base + (long)j * V.T + t;
+            lw_copy(next, v);
+            if (j + 1 < cnt) lw_load_plane(V.x, V.m, i + V.T, next);
+            if (!lw_is_zero(v)) {
+                if (started) lw_mont_mul(run, v, run);
+                else lw_copy(v, run);
+                started = true;
+            }
+            lw_store_plane(V.out, V.m, i, run);
         }
-        if (i == c) {
-            lw_store_plane(out, n, i, inv);
-            break;
-        }
-        uint32_t prev[LW_LIMBS], r[LW_LIMBS];
-        lw_load_plane(out, n, i - chunks, prev);
-        lw_mont_mul(inv, prev, r);
-        lw_store_plane(out, n, i, r);
-        lw_mont_mul(inv, v, inv);
+        lw_inv_node_put(sm, V.T, V.T + t, run);
     }
+}
+
+// the leaves again, from each thread's last prefix
+LW_HD void lw_inv_leaves(const LwInvLevel& V, long b, int tid, int nt, uint32_t* sm) {
+    const long base = b * V.T * V.L;
+    for (int t = tid; t < V.T; t += nt) {
+        uint32_t v[LW_LIMBS];
+        const int cnt = lw_inv_count(V, b, t);
+        if (cnt) lw_load_plane(V.out, V.m, base + (long)(cnt - 1) * V.T + t, v);
+        else lw_mont_one(v);
+        lw_inv_node_put(sm, V.T, V.T + t, v);
+    }
+}
+
+// node k = node 2k * node 2k+1, from the leaves up to the root, node 1
+LW_HD void lw_inv_tree_up(int T, int tid, int nt, uint32_t* sm) {
+    for (int h = T >> 1; h >= 1; h >>= 1) {
+        for (int idx = tid; idx < h; idx += nt) {
+            const int k = h + idx;
+            uint32_t l[LW_LIMBS], r[LW_LIMBS];
+            lw_inv_node_get(sm, T, 2 * k, l);
+            lw_inv_node_get(sm, T, 2 * k + 1, r);
+            lw_mont_mul(l, r, l);
+            lw_inv_node_put(sm, T, k, l);
+        }
+        LW_INV_SYNC();
+    }
+}
+
+// node 1 holds the root's inverse; each node's inverse replaces it, from
+// the root down to the leaves
+LW_HD void lw_inv_tree_down(int T, int tid, int nt, uint32_t* sm) {
+    for (int h = 1; h < T; h <<= 1) {
+        for (int idx = tid; idx < h; idx += nt) {
+            const int k = h + idx;
+            uint32_t iv[LW_LIMBS], l[LW_LIMBS], r[LW_LIMBS];
+            lw_inv_node_get(sm, T, k, iv);
+            lw_inv_node_get(sm, T, 2 * k, l);
+            lw_inv_node_get(sm, T, 2 * k + 1, r);
+            lw_mont_mul(iv, r, r);
+            lw_mont_mul(iv, l, l);
+            lw_inv_node_put(sm, T, 2 * k, r);
+            lw_inv_node_put(sm, T, 2 * k + 1, l);
+        }
+        LW_INV_SYNC();
+    }
+}
+
+// each thread from its leaf's inverse back over its walk: out = r * (the
+// prefix before), r = r * x; zeros give zero.  The element and prefix of
+// the next step are loaded before the products of this one.
+LW_HD void lw_inv_backward(const LwInvLevel& V, long b, int tid, int nt, const uint32_t* sm) {
+    const long base = b * V.T * V.L;
+    for (int t = tid; t < V.T; t += nt) {
+        uint32_t r[LW_LIMBS], v[LW_LIMBS], w[LW_LIMBS], nv[LW_LIMBS], nw[LW_LIMBS] = {0};
+        lw_inv_node_get(sm, V.T, V.T + t, r);
+        const int cnt = lw_inv_count(V, b, t);
+        long i = base + (long)(cnt - 1) * V.T + t;
+        if (cnt) lw_load_plane(V.x, V.m, i, nv);
+        if (cnt > 1) lw_load_plane(V.out, V.m, i - V.T, nw);
+        for (int j = cnt - 1; j >= 0; j--, i -= V.T) {
+            lw_copy(nv, v);
+            lw_copy(nw, w);
+            if (j > 0) lw_load_plane(V.x, V.m, i - V.T, nv);
+            if (j > 1) lw_load_plane(V.out, V.m, i - 2 * V.T, nw);
+            if (lw_is_zero(v)) {
+                lw_store_plane(V.out, V.m, i, v);
+            } else if (j == 0) {
+                lw_store_plane(V.out, V.m, i, r);
+            } else {
+                lw_mont_mul(r, w, w);
+                lw_store_plane(V.out, V.m, i, w);
+                lw_mont_mul(r, v, r);
+            }
+        }
+    }
+}
+
+// tile b of one launch; sm holds lw_inv_smem_words(T) words
+LW_HD void lw_inv_block(const LwInvLevel& V, int mode, long b, int tid, int nt, uint32_t* sm) {
+    if (mode == LW_INV_DOWN) lw_inv_leaves(V, b, tid, nt, sm);
+    else lw_inv_forward(V, b, tid, nt, sm);
+    LW_INV_SYNC();
+    lw_inv_tree_up(V.T, tid, nt, sm);
+    for (int idx = tid; idx < 1; idx += nt) {
+        uint32_t v[LW_LIMBS];
+        lw_inv_node_get(sm, V.T, 1, v);
+        if (mode == LW_INV_UP) {
+            lw_store_plane(V.next, V.tiles, b, v);
+        } else {
+            if (mode == LW_INV_TOP) lw_mont_inv(v, v);
+            else lw_load_plane(V.next_inv, V.tiles, b, v);
+            lw_inv_node_put(sm, V.T, 1, v);
+        }
+    }
+    if (mode == LW_INV_UP) return;
+    LW_INV_SYNC();
+    lw_inv_tree_down(V.T, tid, nt, sm);
+    lw_inv_backward(V, b, tid, nt, sm);
 }

@@ -44,7 +44,7 @@ __global__ void field_op_kernel(int op, const int32_t* a, long a_ls,
         case OP_SUB: load(b, b_ls, b_es, i, y); lw_sub(x, y, r); break;
         case OP_MUL: load(b, b_ls, b_es, i, y); lw_mont_mul(x, y, r); break;
         case OP_NEG: lw_neg(x, r); break;
-        default: lw_mont_mul(x, x, r); break;
+        default: lw_mont_sqr(x, r); break;
     }
 #pragma unroll
     for (int k = 0; k < LW_LIMBS; k++) out[k * n + i] = (int32_t)r[k];

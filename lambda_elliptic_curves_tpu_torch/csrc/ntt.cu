@@ -30,9 +30,9 @@
 //    of about 2^(L/2) entries (w^e = T_hi[e >> h] * T_lo[e mod 2^h]), read
 //    once per block into small per-column tables in shared memory; a point
 //    costs one product for its twist and one to apply it;
-//  * products are 64-bit multiply-adds and the reduction and sums the
-//    card's carry-chain instructions (ntt.cuh: lw_ntt_mul,
-//    lw_ntt_butterfly), p's sparse limbs folded into a few words; every
+//  * products are mont.cuh's lw_mont_mul (64-bit multiply-adds, then a
+//    carry-chain reduction with p's sparse limbs folded into a few words),
+//    sums ntt.cuh's lw_ntt_butterfly in carry-chain instructions; every
 //    product and sum reduces strictly, so values stay canonical and the
 //    output equals the plain version's bit for bit.
 #include <cuda_runtime.h>

@@ -44,139 +44,6 @@ struct LwNttPass {
     int log_n, ns_log, s, log_c;
 };
 
-// The pass's arithmetic (lw_ntt_mul, lw_ntt_butterfly): the product a*b
-// in 64-bit multiply-adds, then the Montgomery reduction and the sums in
-// the card's carry-chain instructions (mad.lo/hi and add with carry in
-// and out), p's sparse limbs (m*p = m + 17m*2^192 + m*2^251) folded into
-// a few words.  On the host each carry instruction is emulated with a
-// carry flag, so the host tests run the same sequence of values; they do
-// not show that the card's carry flag behaves as the emulation's does
-// (the card's kernel tests check that).
-
-#ifdef __CUDA_ARCH__
-#define LW_NTT_ASM3(name, op)                                                   \
-    __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b, uint32_t c) { \
-        uint32_t d;                                                             \
-        asm volatile(op " %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));  \
-        return d;                                                               \
-    }
-#define LW_NTT_ASM2(name, op)                                                   \
-    __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) {           \
-        uint32_t d;                                                             \
-        asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));              \
-        return d;                                                               \
-    }
-LW_NTT_ASM3(lw_mad_lo_cc, "mad.lo.cc.u32")
-LW_NTT_ASM3(lw_madc_lo_cc, "madc.lo.cc.u32")
-LW_NTT_ASM3(lw_mad_hi_cc, "mad.hi.cc.u32")
-LW_NTT_ASM3(lw_madc_hi_cc, "madc.hi.cc.u32")
-LW_NTT_ASM2(lw_add_cc, "add.cc.u32")
-LW_NTT_ASM2(lw_addc_cc, "addc.cc.u32")
-LW_NTT_ASM2(lw_addc, "addc.u32")
-#else
-static uint32_t lw_ntt_cf;  // the emulated carry flag
-static inline uint32_t lw_ntt_set(uint64_t v) {
-    lw_ntt_cf = (uint32_t)(v >> 32);
-    return (uint32_t)v;
-}
-static inline uint32_t lw_mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-    return lw_ntt_set((uint64_t)(uint32_t)(a * b) + c);
-}
-static inline uint32_t lw_madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
-    return lw_ntt_set((uint64_t)(uint32_t)(a * b) + c + lw_ntt_cf);
-}
-static inline uint32_t lw_mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
-    return lw_ntt_set((((uint64_t)a * b) >> 32) + c);
-}
-static inline uint32_t lw_madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
-    return lw_ntt_set((((uint64_t)a * b) >> 32) + c + lw_ntt_cf);
-}
-static inline uint32_t lw_add_cc(uint32_t a, uint32_t b) {
-    return lw_ntt_set((uint64_t)a + b);
-}
-static inline uint32_t lw_addc_cc(uint32_t a, uint32_t b) {
-    return lw_ntt_set((uint64_t)a + b + lw_ntt_cf);
-}
-static inline uint32_t lw_addc(uint32_t a, uint32_t b) { return a + b + lw_ntt_cf; }
-#endif
-
-// a*b*2^-256 mod p for canonical a, b: the same value as lw_mont_mul
-LW_HD void lw_ntt_mul(const uint32_t a[LW_LIMBS], const uint32_t b[LW_LIMBS],
-                      uint32_t r[LW_LIMBS]) {
-    // T = a*b, 16 limbs, row by row in 64-bit multiply-adds (t + a_j b_i + c
-    // < 2^64); carry chains measured slower for this part
-    uint32_t T[2 * LW_LIMBS];
-#pragma unroll
-    for (int j = 0; j < 2 * LW_LIMBS; j++) T[j] = 0;
-#pragma unroll
-    for (int i = 0; i < LW_LIMBS; i++) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < LW_LIMBS; j++) {
-            const uint64_t w = (uint64_t)a[j] * b[i] + T[i + j] + c;
-            T[i + j] = (uint32_t)w;
-            c = w >> 32;
-        }
-        T[i + 8] = (uint32_t)c;
-    }
-    // -p^-1 = -1 mod 2^192, so reduce 192 bits at once: m = -T mod 2^192
-    // and X = (T + m p) / 2^192 = T[6..15] + (T mod 2^192 != 0) + 17m + m 2^59
-    // (-T = ~T + 1, whose carry out is 1 exactly when T mod 2^192 = 0)
-    uint32_t m[6], X[10];
-    m[0] = lw_add_cc(~T[0], 1u);
-#pragma unroll
-    for (int k = 1; k < 6; k++) m[k] = lw_addc_cc(~T[k], 0);
-    const uint32_t c1 = lw_addc(0, 0) ^ 1u;
-    X[0] = lw_mad_lo_cc(m[0], 17u, T[6]);
-#pragma unroll
-    for (int k = 1; k < 6; k++) X[k] = lw_madc_lo_cc(m[k], 17u, T[6 + k]);
-#pragma unroll
-    for (int k = 6; k < 9; k++) X[k] = lw_addc_cc(T[6 + k], 0);
-    X[9] = lw_addc(T[15], 0);
-    X[1] = lw_mad_hi_cc(m[0], 17u, X[1]);
-#pragma unroll
-    for (int k = 1; k < 6; k++) X[k + 1] = lw_madc_hi_cc(m[k], 17u, X[k + 1]);
-    X[7] = lw_addc_cc(X[7], 0);
-    X[8] = lw_addc_cc(X[8], 0);
-    X[9] = lw_addc(X[9], 0);
-    X[0] = lw_add_cc(X[0], c1);  // m 2^59: m << 27 on limbs 1..7
-    X[1] = lw_addc_cc(X[1], m[0] << 27);
-#pragma unroll
-    for (int k = 1; k < 6; k++) X[k + 1] = lw_addc_cc(X[k + 1], (m[k] << 27) | (m[k - 1] >> 5));
-    X[7] = lw_addc_cc(X[7], m[5] >> 5);
-    X[8] = lw_addc_cc(X[8], 0);
-    X[9] = lw_addc(X[9], 0);
-    // then 64 bits: n = -X mod 2^64, r = (X + n p) / 2^64
-    //   = X[2..9] + (X mod 2^64 != 0) + 17n 2^128 + n 2^187
-    const uint32_t n0 = lw_add_cc(~X[0], 1u);
-    const uint32_t n1 = lw_addc_cc(~X[1], 0);
-    const uint32_t c2 = lw_addc(0, 0) ^ 1u;
-    r[0] = lw_add_cc(X[2], c2);
-    r[1] = lw_addc_cc(X[3], 0);
-    r[2] = lw_addc_cc(X[4], 0);
-    r[3] = lw_addc_cc(X[5], 0);
-    r[4] = lw_madc_lo_cc(n0, 17u, X[6]);
-    r[5] = lw_madc_lo_cc(n1, 17u, X[7]);
-    r[6] = lw_addc_cc(X[8], 0);
-    r[7] = lw_addc(X[9], 0);
-    r[5] = lw_mad_hi_cc(n0, 17u, r[5]);
-    r[6] = lw_madc_hi_cc(n1, 17u, r[6]);
-    r[7] = lw_addc(r[7], 0);
-    r[5] = lw_add_cc(r[5], n0 << 27);
-    r[6] = lw_addc_cc(r[6], (n1 << 27) | (n0 >> 5));
-    r[7] = lw_addc(r[7], n1 >> 5);
-    // r < 2p: d = r - p = r + (2^256 - p), taken when it carries out (r >= p)
-    uint32_t d[LW_LIMBS];
-    d[0] = lw_add_cc(r[0], 0xFFFFFFFFu);
-#pragma unroll
-    for (int k = 1; k < 6; k++) d[k] = lw_addc_cc(r[k], 0xFFFFFFFFu);
-    d[6] = lw_addc_cc(r[6], 0xFFFFFFEEu);
-    d[7] = lw_addc_cc(r[7], 0xF7FFFFFFu);
-    const uint32_t take = 0u - lw_addc(0, 0);  // all ones if r >= p
-#pragma unroll
-    for (int k = 0; k < LW_LIMBS; k++) r[k] = (d[k] & take) | (r[k] & ~take);
-}
-
 LW_HD int lw_ntt_twist_split(int s) { return (s + 1) >> 1; }
 
 // words of shared memory that one block of the pass takes
@@ -207,7 +74,7 @@ LW_HD void lw_ntt_twiddle(const LwNttPass& P, uint64_t e, uint32_t r[LW_LIMBS]) 
     uint32_t hi[LW_LIMBS], lo[LW_LIMBS];
     lw_ntt_load(P.t_hi + LW_LIMBS * (e >> h), hi);
     lw_ntt_load(P.t_lo + LW_LIMBS * (e & ((1ull << h) - 1)), lo);
-    lw_ntt_mul(hi, lo, r);
+    lw_mont_mul(hi, lo, r);
 }
 
 // point `pos` of column c of the tile, limb by limb (stride (r)(C+1))
@@ -299,8 +166,8 @@ LW_HD void lw_ntt_pass_block(const LwNttPass& P, long block, int tid, int nt,
             uint32_t zh[LW_LIMBS], zl[LW_LIMBS], w[LW_LIMBS];
             lw_ntt_load(z_hi + LW_LIMBS * ((c << (s - a)) + (t >> a)), zh);
             lw_ntt_load(z_lo + LW_LIMBS * ((c << a) + (t & ((1 << a) - 1))), zl);
-            lw_ntt_mul(zh, zl, w);
-            lw_ntt_mul(v, w, v);
+            lw_mont_mul(zh, zl, w);
+            lw_mont_mul(v, w, v);
         }
         lw_ntt_tile_put(tile, r, cs, lw_ntt_brev(t, s), c, v);
     }
@@ -322,17 +189,17 @@ LW_HD void lw_ntt_pass_block(const LwNttPass& P, long block, int tid, int nt,
             lw_ntt_tile_get(tile, r, cs, base + 3 * half, c, a3);
             if (st > 1) {  // stage 1 multiplies by w^0 = 1
                 lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st)), w);
-                lw_ntt_mul(a1, w, a1);
-                lw_ntt_mul(a3, w, a3);
+                lw_mont_mul(a1, w, a1);
+                lw_mont_mul(a3, w, a3);
             }
             lw_ntt_butterfly(a0, a1);
             lw_ntt_butterfly(a2, a3);
             if (st > 1) {  // stage 2 multiplies a2 by w^0 = 1
                 lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st - 1)), w);
-                lw_ntt_mul(a2, w, a2);
+                lw_mont_mul(a2, w, a2);
             }
             lw_ntt_load(w_r + LW_LIMBS * ((jj + half) << (s - st - 1)), w);
-            lw_ntt_mul(a3, w, a3);
+            lw_mont_mul(a3, w, a3);
             lw_ntt_butterfly(a0, a2);
             lw_ntt_butterfly(a1, a3);
             lw_ntt_tile_put(tile, r, cs, base, c, a0);
@@ -353,7 +220,7 @@ LW_HD void lw_ntt_pass_block(const LwNttPass& P, long block, int tid, int nt,
             lw_ntt_tile_get(tile, r, cs, i0 + half, c, v);
             if (st > 1) {
                 lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st)), w);
-                lw_ntt_mul(v, w, v);
+                lw_mont_mul(v, w, v);
             }
             lw_ntt_butterfly(u, v);
             lw_ntt_tile_put(tile, r, cs, i0, c, u);

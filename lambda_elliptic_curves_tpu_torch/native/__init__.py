@@ -137,7 +137,8 @@ def cuda_lib():
             sigs = {
                 "lw_field_op": [I, P, L, L, P, L, L, P, L, P],
                 "lw_field_pow": [P, L, L, P, L, P, I, P],
-                "lw_field_batch_inverse": [P, P, L, P],
+                "lw_field_batch_inverse_plan": [L, P],
+                "lw_field_batch_inverse": [P, P, P, L, P],
                 "lw_ntt_passes": [P, P, P, P, P, L, I, I, P, I, P],
                 "lw_keccak_f": [P, P, L, P],
                 "lw_keccak256_words": [P, I, L, I, P, P],

@@ -276,16 +276,22 @@ def _field_pow_cuda(a, exponent: int):
 
 
 def _batch_inverse_cuda(a):
-    """Kernel 4 (``csrc/batch_inverse.cu``): Montgomery's trick over the
-    flattened batch, one launch."""
+    """Kernel 4 (``csrc/batch_inverse.cu``): a tiled Montgomery trick over
+    the flattened batch, 2 levels - 1 launches, the levels above the first
+    in a scratch tensor (``lw_field_batch_inverse_plan`` gives both)."""
+    import ctypes
+
     if a.dtype != torch.int32 or not a.is_cuda or a.dim() < 1 or a.shape[0] != LIMBS:
         raise TypeError("batch inversion takes (8, *batch) int32 CUDA tensors")
     flat = a.reshape(LIMBS, -1).contiguous()
     out = torch.empty_like(flat)
     n = flat.shape[1]
     if n:
-        native.launch("field_inv", "lw_field_batch_inverse", flat.data_ptr(),
-                      out.data_ptr(), n)
+        words = ctypes.c_long()
+        launches = native.cuda_lib().lw_field_batch_inverse_plan(n, ctypes.byref(words))
+        scratch = torch.empty(max(words.value, 1), dtype=torch.int32, device=a.device)
+        native.launch("field_inv", "lw_field_batch_inverse", flat.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), n, count=launches)
     return out.reshape(a.shape)
 
 
@@ -326,7 +332,8 @@ def mont_pow(a, exponent: int):
 
 def batch_inverse(a):
     """Elementwise inverse, zeros mapping to zero, by Montgomery's trick: on
-    the card one launch of kernel 4, on the CPU the plain version."""
+    the card kernel 4 (one inversion per call), on the CPU the plain
+    version."""
     return batch_inverse_plain(a) if _on_cpu(a) else _batch_inverse_cuda(a)
 
 

@@ -3,7 +3,7 @@ folder: the card's ``nvidia-smi`` fields, a CUDA-event timer, a
 ``torch.profiler`` summary, the device bytes held by a module's caches,
 and random field limbs drawn on the card.
 
-Imports nothing of the port, so that ``tools/time_fft.py``, run as a
+Imports nothing of the port, so that ``tools/time_tree.py``, run as a
 script, can load it from this folder beside any checkout of the port.
 """
 

@@ -1,0 +1,199 @@
+"""Time the port on one NVIDIA card for any checkout of it: this one, or an
+older one unpacked beside it, so that two versions are compared in one
+machine's run.
+
+    python3 lambda_elliptic_curves_tpu_torch/tools/time_tree.py [--tree DIR] [GROUP ...]
+
+Run as a script (not with ``-m``): it imports ``lambda_elliptic_curves_tpu_torch``
+from DIR (default: the checkout holding this file) and only through the
+entry points every version has: ``fields.Stark252``, ``ops.limbs.mont_pow``,
+``poly.ntt``, ``provers.stark.prove`` and ``native.launches``.  Times are
+CUDA-event means over repeated calls after one warm-up, unless said
+otherwise.  The groups, run in this order whatever order they are given in
+(default: all):
+
+* ``prove``: the first Fibonacci prove at 2^20 rows, ``ProofOptions(4, 32,
+  3, 0)`` (it builds the NTT's tables), then two warm proves (host clock
+  around work ending in a synchronise), kernel launches of the second and
+  the device allocations (``cudaMalloc`` / ``cudaFree``) the caching
+  allocator made during it; device bytes held by the NTT module's caches
+  after the first prove; a ``torch.profiler`` trace of one more warm prove:
+  device busy ms and time and launches of the largest kernels.  Each
+  prove's ``prover.last_timings`` (ms per phase) is kept beside it;
+* ``fft``: fft of 2^18 and 2^22 points, ``interpolate_fft`` of 2^22
+  evaluations, and the wall time per call of 200 ffts of 2^10 points back
+  to back (host bound: what one call costs the host);
+* ``field``: field mul at 2^22, and a^(p-2) (``field_pow``) at 2^18 and
+  2^24;
+* ``inverse``: ``batch_inverse`` of 2^18, 2^20, 2^23 and 2^24 random
+  elements with zeros, each output first held bitwise against Fermat
+  (a^(p-2) on the card, zeros to zero); one warm prove at 2^16 and at 2^20
+  rows under ``torch.profiler``: batch inversion's device ms and launches
+  per prove (the launch counters and the trace), and the device busy ms.
+
+Prints the card's name and power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+if __package__:
+    from ._timing import cache_bytes, cuda_ms, profile, random_field, smi
+else:  # run as a script: this file's folder heads sys.path, whatever DIR holds
+    from _timing import cache_bytes, cuda_ms, profile, random_field, smi
+
+GROUPS = ("prove", "fft", "field", "inverse")
+
+
+class Failed(Exception):
+    pass
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("groups", nargs="*", choices=GROUPS, help="default: all")
+    args = ap.parse_args()
+    groups = args.groups or GROUPS
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_tree: no CUDA device", file=sys.stderr)
+        return 2
+    import lambda_elliptic_curves_tpu_torch as port
+    from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.fields import Stark252 as f
+    from lambda_elliptic_curves_tpu_torch.fiat_shamir import DefaultTranscript
+    from lambda_elliptic_curves_tpu_torch.ops import limbs
+    from lambda_elliptic_curves_tpu_torch.poly import ntt
+    from lambda_elliptic_curves_tpu_torch.provers.stark import ProofOptions, prove, verify
+    from lambda_elliptic_curves_tpu_torch.provers.stark import prover as prover_mod
+    from lambda_elliptic_curves_tpu_torch.provers.stark.examples.fibonacci import (
+        FibonacciPublicInputs, fibonacci_air_for, fibonacci_trace,
+    )
+
+    if not os.path.abspath(port.__file__).startswith(tree + os.sep):
+        print(f"time_tree: imported {port.__file__}, not from {tree}", file=sys.stderr)
+        return 2
+    card = smi("name,power.limit")
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    native.cuda_lib()
+    native.host_keccak()
+    rec = {"tree": tree, "card": card, "build_s": time.perf_counter() - t0}
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f.mul(f.ones((4,), dev), f.ones((4,), dev))  # the card's context, outside every timing
+    air, pub, opts = fibonacci_air_for(f), FibonacciPublicInputs(a0=1, a1=1), \
+        ProofOptions(4, 32, 3, 0)
+
+    def verified(proof, what):
+        if not verify(air, proof, pub, opts, DefaultTranscript(f)):
+            raise Failed(f"verify rejected the {what} proof")
+
+    def prove_once():
+        trace = fibonacci_trace(f, [1, 1], 1 << 20, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        proof = prove(air, trace, pub, opts, DefaultTranscript(f), device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1000.0
+        rec.setdefault("phases_ms", []).append(
+            {k: round(v * 1000.0, 3) for k, v in prover_mod.last_timings.items()})
+        return proof, ms
+
+    def run_prove():
+        proof, rec["first_prove_2^20_ms"] = prove_once()
+        verified(proof, "first 2^20")
+        rec["cached_after_first_prove"] = cache_bytes(ntt)
+        _, warm1 = prove_once()
+        for k in native.launches:
+            native.launches[k] = 0
+        keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+        before = torch.cuda.memory_stats()
+        proof, warm2 = prove_once()
+        after = torch.cuda.memory_stats()
+        rec["allocator_during_warm_prove"] = {k: after.get(k, 0) - before.get(k, 0)
+                                              for k in keys}
+        rec["warm_prove_2^20_ms"] = [warm1, warm2]
+        rec["launches_2^20"] = dict(native.launches)
+        verified(proof, "warm 2^20")
+        trace = fibonacci_trace(f, [1, 1], 1 << 20, dev)
+        _, rec["profile_2^20"] = profile(
+            lambda: prove(air, trace, pub, opts, DefaultTranscript(f), device=dev))
+
+    def run_fft():
+        for log_n in (18, 22):
+            x = random_field((1 << log_n,), gen)
+            rec[f"fft_2^{log_n}_ms"] = cuda_ms(lambda: ntt.fft(x, f), 20 if log_n < 22 else 10)
+            if log_n == 22:
+                rec["interpolate_2^22_ms"] = cuda_ms(lambda: ntt.interpolate_fft(f, x), 5)
+        # the host's share: 200 transforms of 2^10 points back to back
+        x = random_field((1 << 10,), gen)
+        ntt.fft(x, f)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            ntt.fft(x, f)
+        torch.cuda.synchronize()
+        rec["fft_2^10_host_us"] = (time.perf_counter() - t) * 1e6 / 200
+
+    def run_field():
+        a, b = random_field((1 << 22,), gen), random_field((1 << 22,), gen)
+        rec["mul_2^22_ms"] = cuda_ms(lambda: f.mul(a, b), 20)
+        for log_n in (18, 24):
+            x = random_field((1 << log_n,), gen)
+            rec[f"pow_p-2_2^{log_n}_ms"] = cuda_ms(lambda: limbs.mont_pow(x, f.p - 2),
+                                                   3 if log_n == 18 else 1)
+
+    def run_inverse():
+        for log_n in (18, 20, 23, 24):
+            x = random_field((1 << log_n,), gen)
+            x[:, ::1009] = 0
+            if not torch.equal(f.batch_inverse(x), limbs.mont_pow(x, f.p - 2)):
+                raise Failed(f"batch_inverse != Fermat at 2^{log_n}")
+            rec[f"batch_inverse_2^{log_n}_ms"] = cuda_ms(lambda: f.batch_inverse(x),
+                                                         20 if log_n <= 20 else 10)
+        torch.cuda.empty_cache()
+        for log_rows in (16, 20):
+            trace = fibonacci_trace(f, [1, 1], 1 << log_rows, dev)
+            prove(air, trace, pub, opts, DefaultTranscript(f), device=dev)  # tables built
+            torch.cuda.synchronize()
+            for k in native.launches:
+                native.launches[k] = 0
+            proof, stats = profile(
+                lambda: prove(air, trace, pub, opts, DefaultTranscript(f), device=dev), top=40)
+            verified(proof, f"2^{log_rows}")
+            inv = [v for k, v in stats["by_kernel"].items() if "batch_inverse" in k]
+            rec[f"prove_2^{log_rows}"] = {
+                "batch_inverse_device_ms": sum(v["ms"] for v in inv),
+                "batch_inverse_traced_launches": sum(v["launches"] for v in inv),
+                "field_inv_launches": native.launches["field_inv"],
+                "field_pow_launches": native.launches["field_pow"],
+                "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
+
+    runs = {"prove": run_prove, "fft": run_fft, "field": run_field, "inverse": run_inverse}
+    try:
+        for group in GROUPS:
+            if group in groups:
+                runs[group]()
+                torch.cuda.empty_cache()
+    except Failed as e:
+        print(f"time_tree: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

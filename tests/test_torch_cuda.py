@@ -81,19 +81,31 @@ def test_field_kernel_matches_plain(dev, op):
     assert torch.equal(_on_card(kernel, a.to(dev), b.to(dev)), plain(a, b))
 
 
-@pytest.mark.parametrize("shape", [(3, 7, 1001), (4, (1 << 17) + 3)])
-def test_batch_inverse_kernel_ragged_zeros_batched(dev, shape):
-    """Ragged sizes (two chunk lengths), zeros in runs and at both ends, a
-    3-D batch; bitwise against the plain version on the card."""
+# (shape, field_inv launches): tiles of 256 threads x L elements, L = 8
+# below 2^19 elements (2048 a tile), 16 below 2^21, 32, 64 from 2^22 and
+# 128 from 2^23; one launch up to a tile, 3 up to a tile of tiles
+_INV_SHAPES = [((3, 7, 1001), 3), ((4, (1 << 17) + 3), 3), ((2047,), 1), ((2048,), 1),
+               ((2049,), 3), (((1 << 19) + 1,), 3), ((2, 1 << 18), 3), ((4, 1 << 18), 3),
+               (((1 << 22) + 1,), 3)]
+
+
+@pytest.mark.parametrize("shape, launches", _INV_SHAPES)
+def test_batch_inverse_kernel_ragged_zeros_batched(dev, shape, launches):
+    """Ragged sizes across tile boundaries and levels, the prover's (8, 2, N)
+    and (8, 4, N) at N = 2^18, a 3-D batch; zeros scattered, in a run and
+    at both ends (so whole tiles and walks hold zeros); bitwise against the
+    plain version on the card, and the exact launches of the call."""
     n = int(np.prod(shape))
     rng = np.random.default_rng(n)
     vals = rng.integers(0, 1 << 32, (8, n), dtype=np.uint32)
     vals[7] &= 0x07FFFFFF  # below 2^251 < p
     vals[:, ::97] = 0
-    vals[:, 1000:1100] = 0
+    vals[:, 1000:3100] = 0
     vals[:, [0, -1]] = 0
     a = torch.from_numpy(vals.view(np.int32)).reshape((8,) + shape).to(dev)
+    native.launches["field_inv"] = 0
     got = Stark252.batch_inverse(a)
+    assert native.launches["field_inv"] == launches
     assert torch.equal(got, limbs.batch_inverse_plain(a))
     assert not got.reshape(8, -1)[:, [0, -1]].any()
 
@@ -203,12 +215,16 @@ def test_every_kernel_counts_its_launches(dev):
     assert native.launches["keccak"] == 1
     assert native.launches["ntt"] == 1
     assert native.launches["field"] >= 1
-    assert native.launches["field_inv"] == 1
+    assert native.launches["field_inv"] == 1  # 64 elements: one tile
     assert native.launches["field_pow"] == 1
+    Stark252.batch_inverse(Stark252.array(_ints(10, 2043), "cpu").to(dev))  # 2049: two levels
+    torch.cuda.synchronize()
+    assert native.launches["field_inv"] == 1 + 3
 
 
 def test_prove_inverts_with_the_batch_inverse_kernel(dev):
-    """A 2^16-row prove launches the Montgomery-trick kernel, never Fermat."""
+    """A 2^16-row prove launches the Montgomery-trick kernel, never Fermat:
+    two calls, (8, 2, 2^18) and (8, 4, 2^18), of 3 launches each."""
     rows = 1 << 16
     air, pub, opts = fibonacci_air_for(Stark252), FibonacciPublicInputs(1, 1), \
         ProofOptions(4, 32, 3, 0)
@@ -217,7 +233,7 @@ def test_prove_inverts_with_the_batch_inverse_kernel(dev):
     proof = prove(air, trace, pub, opts, DefaultTranscript(Stark252), device=dev)
     torch.cuda.synchronize()
     counts = dict(native.launches)
-    assert counts["field_inv"] > 0 and counts["field_pow"] == 0, counts
+    assert counts["field_inv"] == 6 and counts["field_pow"] == 0, counts
     assert verify(air, proof, pub, opts, DefaultTranscript(Stark252))
 
 

@@ -38,7 +38,7 @@ _HOST_SRC = """
 extern "C" long smem_words(int s, int log_c) { return lw_ntt_pass_smem_words(s, log_c); }
 
 extern "C" void mul(const uint32_t* a, const uint32_t* b, uint32_t* r, long n) {
-    for (long i = 0; i < n; i++) lw_ntt_mul(a + 8 * i, b + 8 * i, r + 8 * i);
+    for (long i = 0; i < n; i++) lw_mont_mul(a + 8 * i, b + 8 * i, r + 8 * i);
 }
 
 extern "C" void ntt_pass(const int32_t* x, int32_t* out, const int32_t* t_lo,
@@ -117,8 +117,9 @@ def test_host_block_equals_ntt_pass_plain(block, log_n, rows):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_products_equal_host_ints(block, seed):
-    """lw_ntt_mul against a*b*2^-256 mod p, with edge values (0, 1, p - 1,
-    p - 2, values with zero low limbs) and random values from ``seed``."""
+    """lw_mont_mul (``mont.cuh``, the pass's product) against a*b*2^-256
+    mod p, with edge values (0, 1, p - 1, p - 2, values with zero low
+    limbs) and random values from ``seed``."""
     lib = block
     p = Stark252.p
     rng = np.random.default_rng(seed)
