@@ -45,7 +45,14 @@ Phases (one result line each, with its seconds):
      BLS12-377 (kernels 8 and 9 over Fr and over Fq on six words, kernel 1
      over Fr; every pass and the fft, both roots, also at the QAP's 3 rows
      at 2^16 and 2^17; the fft checked at 2^17 and timed at 2^16, 2^17,
-     2^18, 2^22)
+     2^18, 2^22); 2m holds kernel 10 (``csrc/curve.cu``: a group op a
+     launch) against the plain group law for the addition, the mixed
+     addition, the doubling and an operand broadcast, for BN254 G1 and G2
+     and BLS12-377 G1 and G2, at the MSMs' scan width (17 x 2^16 lanes, with
+     P + P, P + (-P) and infinity lanes), and kernel 11
+     (``csrc/msm_bucket.cu``: Pippenger's bucket phase) against its plain
+     version over skewed ids (uniform, one bucket, mostly 0 and 1, half
+     zeros) of 2^10 points for each group; each timed with its bound
   3. Fibonacci 2^10 rows, ProofOptions(4, 32, 3, 0): serialized proof
      byte-equal to the JAX package's checked-in proof; verify accepts it and
      rejects it with fri_last_value + 1; 3b every example AIR of
@@ -83,6 +90,9 @@ Phases (one result line each, with its seconds):
      input refused; 5h MSMs of 2^16 BLS12-377 G2 points and of 2^16 G1
      points (from the setup's comb on the card), Pippenger against the
      device double-and-add (timed), and both against the host MSM at 2^8;
+     5f and 5h also hold kernel 11 against its plain version over the
+     MSM's own ids, report each MSM's launches by kernel and trace one more
+     Pippenger MSM (fewer than 100 kernels of any kind);
      5i Groth16 over BLS12-377 on a chain of 2^16 constraints: setup, a
      first and a warm prove (launch counts reset just before it) with each
      stage's time, verify, and a wrong public input refused
@@ -92,9 +102,10 @@ Phases (one result line each, with its seconds):
      size, two calls of 3 launches; none of the Fermat kernel
      ``field_pow``; the small-field proves launch kernels 6 and 7 and
      Keccak, and no Stark252 kernel; the Plonk prove launches kernel 1's
-     BN254 Fr entry and kernels 8 and 9 and nothing of the STARK paths; the
-     Groth16 prove the BLS12-377 instances of kernels 1, 8 and 9 and
-     nothing else)
+     BN254 Fr entry and kernels 8, 9 and 11 and nothing of the STARK paths,
+     its SRS kernel 10; the Groth16 prove the BLS12-377 instances of
+     kernels 1, 8, 9 and 11 and nothing else, kernel 8 fewer than 1,000
+     times, its setup kernel 10)
   7. a torch.profiler trace of one warm prove at 2^16 and at 2^20 rows, at
      2^20 rows at the preset, of both small-field 2^20-row proves, of a
      warm Plonk prove at 2^16 gates and of a warm Groth16 prove at 2^16
@@ -151,6 +162,14 @@ KERNELS = {
                               "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:750"},
     "dense_inv_bls12_377": {"source": f"{CSRC}/batch_inverse.cu",
                             "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:895"},
+    "curve_op": {"source": f"{CSRC}/curve.cu",
+                 "replaces": "lambda_elliptic_curves_tpu/curves/weierstrass.py:284"},
+    "msm_bucket": {"source": f"{CSRC}/msm_bucket.cu",
+                   "replaces": "lambda_elliptic_curves_tpu/curves/msm.py:107"},
+    "curve_op_bls12_377": {"source": f"{CSRC}/curve.cu",
+                           "replaces": "lambda_elliptic_curves_tpu/curves/weierstrass.py:322"},
+    "msm_bucket_bls12_377": {"source": f"{CSRC}/msm_bucket.cu",
+                             "replaces": "lambda_elliptic_curves_tpu/curves/msm.py:107"},
 }
 #: the small-field proves of phases 5d and 5e: name -> (field, tower degree)
 SMALL_PROVES = {"goldilocks_fp2": ("goldilocks", 2), "babybear_fp4": ("babybear", 4)}
@@ -158,15 +177,43 @@ SMALL_PROVES = {"goldilocks_fp2": ("goldilocks", 2), "babybear_fp4": ("babybear"
 STARK252_KERNELS = ("ntt", "keccak", "field", "field_inv", "grind")
 SMALL_KERNELS = ("small_field", "small_ntt", "keccak")
 #: the kernels of the Plonk proves over BN254 (kernel 1's BN254 Fr entry,
-#: kernels 8 and 9), and the log2 of the gates of phase 5g's circuit
-BN254_KERNELS = ("dense_ntt", "dense_field", "dense_inv")
+#: kernels 8, 9 and 11: the KZG commitments' Pippenger), the kernel of its
+#: SRS (kernel 10: the comb's mixed additions), and the log2 of the gates
+#: of phase 5g's circuit
+BN254_KERNELS = ("dense_ntt", "dense_field", "dense_inv", "msm_bucket")
+BN254_SETUP_KERNELS = ("curve_op",)
 PLONK_LOG_GATES = 16
-#: the kernels of the Groth16 proves over BLS12-377 (the same three kernels'
-#: BLS12-377 instances: Fr on four words, Fq on six), and the log2 of the
-#: constraints of phase 5i's circuit and of the points of phase 5h's MSMs
-BLS_KERNELS = ("dense_ntt_bls12_377", "dense_field_bls12_377", "dense_inv_bls12_377")
+#: the kernels of the Groth16 proves over BLS12-377 (the same four kernels'
+#: BLS12-377 instances: Fr on four words, Fq on six), the kernel of its
+#: setup (kernel 10: the combs), and the log2 of the constraints of phase
+#: 5i's circuit and of the points of phase 5h's MSMs
+BLS_KERNELS = ("dense_ntt_bls12_377", "dense_field_bls12_377", "dense_inv_bls12_377",
+               "msm_bucket_bls12_377")
+BLS_SETUP_KERNELS = ("curve_op_bls12_377",)
 GROTH16_LOG_CONSTRAINTS = 16
 G2_MSM_LOG_POINTS = 16
+#: kernel 8 launches that a warm Groth16 prove at 2^16 stays below, now that
+#: the curve work runs on kernels 10 and 11 (18,971 before them), and the
+#: kernels of any kind that a Pippenger MSM of 2^16 points stays below
+GROTH16_DENSE_FIELD_MAX = 1000
+MSM_KERNELS_MAX = 100
+#: the curve groups of kernels 10 and 11 (curve.cuh's LW_CURVE_*), and the
+#: lanes phase 2m holds kernel 10 at: the MSMs' scan width, 17 windows of
+#: 2^16 points
+CURVE_GROUPS = ("bn254_g1", "bn254_g2", "bls12_377_g1", "bls12_377_g2")
+#: the sources of kernels 10 and 11, whose registers and spills phase 1
+#: reports
+CURVE_SOURCES = ("curve.cu", "curve_g2.cu", "msm_bucket.cu", "msm_bucket_g2.cu",
+                 "msm_bucket_bls12_377_g2.cu")
+CURVE_LANES = 17 << 16
+# base products and base sums of one group op as curve.cuh writes it, over
+# the curve's own field (an Fp2 product is 3 base products and 5 sums for
+# BN254, u^2 = -1, or 9 for BLS12-377, u^2 = -5; an Fp2 sum 2): the mixed
+# addition's 11 products (madd-2007-bl), the addition's 16 (add-2007-bl),
+# the doubling's 8 (dbl-2007-bl), and the products before the test for a
+# doubling (4 and 9), which a lane with p1 = -p2 stops after
+CURVE_OP_COUNTS = {"add_mixed": (11, 7), "add": (16, 7), "double": (8, 16),
+                   "add_mixed_head": (4, 2), "add_head": (9, 2)}
 
 # The card's peak rates (NVIDIA's H100 SXM data sheet and the CUDA
 # programming guide's throughput table for compute capability 9.0), at the
@@ -296,8 +343,47 @@ def phase_build(state):
         native.cuda_lib()
         native.host_keccak()
         state["build_s"] = time.perf_counter() - t0
-        return f"kernels built in {state['build_s']:.1f}s from {CSRC}/*.cu"
+        state["build_seconds"] = {k: round(v, 1) for k, v in sorted(
+            native.build_seconds.items(), key=lambda kv: -kv[1])}
+        state["ptxas"] = {src: _ptxas_summary(native.build_log.get(src, ""))
+                          for src in CURVE_SOURCES}
+        return (f"kernels built in {state['build_s']:.1f}s from {CSRC}/*.cu; seconds by "
+                f"source: {json.dumps(state['build_seconds'])}; the curve kernels' registers "
+                f"and spills: {json.dumps(state['ptxas'])}")
     run()
+
+
+def _ptxas_summary(log: str) -> dict:
+    """"kernel or function, group" -> registers and spill bytes, from the
+    ``nvcc -Xptxas -v`` output of a curve kernel's source (a called
+    function's spills are listed under its own name)."""
+    import re
+
+    def label(mangled):
+        field = "bls12_377" if "Bls12377" in mangled else "bn254"
+        if "lw_fq_mul" in mangled:
+            return f"product {field} Fq"
+        group = field + ("_g2" if "LwFp2" in mangled else "_g1")
+        for kind, mark in (("accumulate, mixed", "accumulate_kernel.*Lb1E"),
+                           ("accumulate", "accumulate_kernel"), ("reduce", "reduce_kernel"),
+                           ("kernel 10", "curve_point_op_kernel"), ("add_mixed", "9add_mixed"), ("add", "3add"), ("double", "3dbl")):
+            if re.search(mark, mangled):
+                return f"{kind} {group}"
+        return None
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = label(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def _random_field(n: int, gen, dev):
@@ -1224,7 +1310,8 @@ def _dense_bound(state, n: int, muls: int, adds: int = 0, values: int = 3, words
 DENSE_CURVES = {
     "bn254": {"ops_phase": "2i bn254 field ops and batch inversion", "ntt_phase": "2j bn254 ntt",
               "fft_logs": (16, 18, 22), "fft_line": (18, "Plonk's 4n"), "prove_rows": {},
-              "mul_line": ("fq", 20, "BN254 Fq mul, 2^20 elements (the MSM's bucket scan)"),
+              "mul_line": ("fr", 18, "BN254 Fr mul, 2^18 elements (Plonk's round-3 quotient "
+                           "at 4n, 2^16 gates)"),
               "inv_line": ("fr", 18, "BN254 Fr, 2^18 elements (Plonk's 4n at 2^16 gates)")},
     "bls12_377": {"ops_phase": "2k bls12_377 field ops and batch inversion",
                   "ntt_phase": "2l bls12_377 ntt", "fft_logs": (16, 17, 18, 22),
@@ -1232,8 +1319,8 @@ DENSE_CURVES = {
                   # the QAP transforms A w, B w and C w at once: 3 rows at n
                   # and 2n for 2^16 constraints
                   "prove_rows": {16: 3, 17: 3},
-                  "mul_line": ("fq", 20, "BLS12-377 Fq mul (six words), 2^20 elements (the "
-                               "MSMs' bucket scans)"),
+                  "mul_line": ("fr", 18, "BLS12-377 Fr mul, 2^18 elements (about the QAP's "
+                               "3 x 2^17 at 2^16 constraints)"),
                   "inv_line": ("fq", 18, "BLS12-377 Fq (six words), 2^18 elements (Groth16 "
                                "setup's affine G1 points at 2^16 constraints: 2^18.3)")},
 }
@@ -1428,6 +1515,275 @@ def phase_bls12_377_kernels(state):
     phase_dense_kernels(state, "bls12_377")
 
 
+# ---------------------------------------------------------------------------
+# kernels 10 and 11: the group law and Pippenger's bucket phase
+
+def _curve_ops(group):
+    """(the group's JacobianOps, its base field Fq, whether it is a G2)."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+    from lambda_elliptic_curves_tpu_torch.curves.twists import bls12_377_twist, bn254_twist
+    from lambda_elliptic_curves_tpu_torch.curves.zoo import BLS12377Curve, BN254Curve
+
+    curve = {"bn254_g1": BN254Curve, "bn254_g2": bn254_twist(),
+             "bls12_377_g1": BLS12377Curve, "bls12_377_g2": bls12_377_twist()}[group]
+    return M.make_ops(curve), _dense_fields(group.rsplit("_", 1)[0])["fq"], group.endswith("g2")
+
+
+def _curve_bound(state, group, counts: dict, nbytes: float):
+    """(least ms, what bounds it) of the group ops ``counts`` (an op of
+    CURVE_OP_COUNTS -> how many) moving ``nbytes``."""
+    _, fq, g2 = _curve_ops(group)
+    mul_ops, add_ops = ((DENSE_MUL_OPS, DENSE_ADD_OPS) if fq.ops.WORDS == 4
+                        else (DENSE6_MUL_OPS, DENSE6_ADD_OPS))
+    prods = adds = 0
+    for op, count in counts.items():
+        p, a = CURVE_OP_COUNTS[op]
+        if g2:
+            p, a = 3 * p, p * (5 if group.startswith("bn254") else 9) + 2 * a
+        prods, adds = prods + count * p, adds + count * a
+    return bound(state, nbytes, ops((prods, mul_ops), (adds, add_ops)))
+
+
+def _curve_values(fq, g2, n, gen):
+    """n random values of the group's field (Fq, or Fp2 as two Fq planes)."""
+    import torch
+
+    if g2:
+        return torch.cat([_random_dense(fq, n, gen), _random_dense(fq, n, gen)])
+    return _random_dense(fq, n, gen)
+
+
+def _curve_lanes(ops, fq, g2, n, gen):
+    """The operands of phase 2m over n lanes: random field triples (off the
+    curve, which the formulas do not need; the random z's first lane is 0,
+    an infinity), then blocks of k = n / 16 lanes of each special case:
+    (a, b) of the addition: P + P with the same triple and with another
+    representative, P + (-P), an infinite operand each side, both; (a, b)
+    of the mixed one (b affine): the same cases."""
+    import torch
+
+    f, dev = ops.f, gen.device
+    k = n // 16
+    val = lambda m: _curve_values(fq, g2, m, gen)  # noqa: E731
+    head = lambda pt: tuple(c[:, :k] for c in pt)  # noqa: E731
+    cat = lambda *pts: tuple(torch.cat(cs, dim=-1) for cs in zip(*pts))  # noqa: E731
+    neg = lambda pt: (pt[0], f.sub(f.zeros(pt[1].shape[1:], dev), pt[1]), pt[2])  # noqa: E731
+    ra, rb = (val(n - 6 * k), val(n - 6 * k), val(n - 6 * k)), (val(n - 6 * k), val(n - 6 * k),
+                                                               val(n - 6 * k))
+    z = val(k)
+    z[:, 0] = f.ones((1,), dev)[:, 0]  # no zero z in a representative
+    z2 = f.mul(z, z)
+    rep = lambda pt: (f.mul(pt[0], z2), f.mul(pt[1], f.mul(z2, z)), f.mul(pt[2], z))  # noqa: E731
+    inf = ops.neutral((k,), dev)
+    a = cat(ra, head(ra), head(ra), head(ra), inf, head(ra), inf)
+    b = cat(rb, head(ra), rep(head(ra)), neg(rep(head(ra))), head(rb), inf, inf)
+    ram = (val(n - 5 * k), val(n - 5 * k), val(n - 5 * k))
+    aff = (val(n - 5 * k), val(n - 5 * k), f.ones((n - 5 * k,), dev))
+    a_of_aff = rep(head(aff))
+    am = cat(ram, a_of_aff, a_of_aff, inf, head(ram), inf)
+    bm = cat(aff, head(aff), neg(head(aff)), head(aff), inf, inf)
+    return a, b, am, bm
+
+
+def _skewed_ids(n: int, c: int, gen):
+    """(4, n) bucket ids of c bits: uniform, all one bucket, mostly 0 and 1
+    (a circom-style witness: 45% each, 10% spread), half zeros."""
+    import torch
+
+    dev = gen.device
+    nb = 1 << c
+    u = torch.randint(0, nb, (4, n), generator=gen, device=dev)
+    r = torch.rand((2, n), generator=gen, device=dev)
+    ones = torch.full((n,), int(u[1, 0]) % (nb - 1) + 1, device=dev)
+    mostly = torch.where(r[0] < 0.45, 0, torch.where(r[0] < 0.9, 1, u[2]))
+    half = torch.where(r[1] < 0.5, 0, u[3])
+    return torch.stack([u[0], ones, mostly, half])
+
+
+def _bucket_work(sorted_ids, nonempty, chunk: int, reduce_chunk: int) -> dict:
+    """The group ops that the bucket phase's data needs (``csrc/
+    msm_bucket.cuh``), counted on the host from the sorted ids (numpy, (W,
+    S)) and which buckets are nonempty ((W, N)): the accumulate's mixed
+    additions (level 0) and full ones (the merges of later levels), the
+    reduce's additions with no neutral operand and its doublings of
+    nonempty sums."""
+    import numpy as np
+
+    mixed = full = dbls = 0
+    seq, first_level = sorted_ids, True
+    while True:
+        W, S = seq.shape
+        K = -(-S // chunk)
+        v = np.zeros((W, K * chunk), np.int64)
+        v[:, :S] = seq
+        v = v.reshape(W, K, chunk)
+        nz = v != 0
+        last_nz = np.maximum.accumulate(np.where(nz, np.arange(chunk), -1), axis=-1)
+        prev = np.concatenate([np.full((W, K, 1), -1), last_nz[..., :-1]], axis=-1)
+        new_run = nz & ((prev < 0) | (v != np.take_along_axis(v, np.maximum(prev, 0), -1)))
+        adds = int(nz.sum() - new_run.sum())
+        mixed, full = (mixed + adds, full) if first_level else (mixed, full + adds)
+        if K == 1:
+            break
+        runs = new_run.sum(-1)
+        first_id = np.take_along_axis(v, np.argmax(new_run, -1)[..., None], -1)[..., 0]
+        last_id = np.take_along_axis(v, np.maximum(last_nz[..., -1], 0)[..., None], -1)[..., 0]
+        seq = np.stack([np.where(runs > 0, first_id, 0), np.where(runs > 1, last_id, 0)],
+                       -1).reshape(W, 2 * K)
+        first_level = False
+    ne, carry, depth, m = nonempty, None, 0, reduce_chunk
+    while True:
+        W, N = ne.shape
+        K = -(-N // m)
+        A = np.zeros((W, K * m), bool)
+        A[:, :N - 1] = ne[:, 1:]
+        A = A.reshape(W, K, m)
+        run, acc = np.zeros((W, K), bool), np.zeros((W, K), bool)
+        for t in reversed(range(m)):
+            full += int((A[..., t] & run).sum())
+            run |= A[..., t]
+            full += int((run & acc).sum())
+            acc |= run
+        if carry is not None:
+            C = np.zeros((W, K * m), bool)
+            C[:, :N] = carry
+            C = C.reshape(W, K, m)
+            d = np.zeros((W, K), bool)
+            for t in range(m):
+                full += int((C[..., t] & d).sum())
+                d |= C[..., t]
+            dbls += int(acc.sum()) * depth * (m.bit_length() - 1)
+            full += int((d & acc).sum())
+            acc |= d
+        if N <= m:
+            return {"add_mixed": mixed, "add": full, "double": dbls}
+        ne, carry, depth = run, acc, depth + 1
+
+
+def _bucket_phase(ops, ids, pts, nbuckets: int, plain: bool = False):
+    """sum_j j B_j of every window: kernel 11's levels, or their plain
+    version; (L, W, 1)."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    if plain:
+        return M.weighted_bucket_sums_plain(ops, M.bucket_sums_plain(ops, ids, pts, nbuckets))
+    return M.weighted_bucket_sums(ops, M.bucket_sums(ops, ids, pts, nbuckets))
+
+
+def _hold_bucket_phase(state, group, ops, ids, pts, nbuckets: int, what: str) -> dict:
+    """Kernel 11 against its plain version on the card over (W, S) ids:
+    the bucket table and the weighted sums bitwise, the launches, the time
+    of both and the bound of the work the ids need."""
+    import torch
+    from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+    from lambda_elliptic_curves_tpu_torch.tools._timing import cuda_ms
+
+    counter = ops.counter("msm_bucket")
+    native.launches[counter] = 0
+    table = M.bucket_sums(ops, ids, pts, nbuckets)
+    torch.cuda.synchronize()
+    acc_launches = native.launches[counter]
+    value = M.weighted_bucket_sums(ops, table)
+    torch.cuda.synchronize()
+    launches = native.launches[counter]
+    t0 = time.perf_counter()
+    want_table = M.bucket_sums_plain(ops, ids, pts, nbuckets)
+    want = M.weighted_bucket_sums_plain(ops, want_table)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_abs_err(x, y) for x, y in zip(table + value, want_table + want))
+    check(err == 0, f"{group}: kernel 11 != its plain version over {what}")
+    sorted_ids = torch.sort(ids, dim=-1, stable=True)[0].cpu().numpy()
+    nonempty = (~ops.f.is_zero(table[2])).cpu().numpy()
+    work = _bucket_work(sorted_ids, nonempty, M.BUCKET_CHUNK, M.REDUCE_CHUNK)
+    W, S = ids.shape
+    pbytes = 3 * ops.f.num_limbs * 4
+    b_ms, b_by = _curve_bound(state, group, work, 16.0 * W * S + pbytes * (S + W))
+    ms = cuda_ms(lambda: _bucket_phase(ops, ids, pts, nbuckets), 3)
+    del table, value, want_table, want
+    return {"what": what, "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+            "plain_ms": plain_ms, "launches": launches, "accumulate_launches": acc_launches,
+            "work": work, "max_abs_err": err}
+
+
+def phase_curve_kernels(state):
+    """Kernel 10 (every op of every group at the MSMs' scan width, and an
+    operand broadcast) and kernel 11 (over skewed ids of 2^10 points, 5-bit
+    windows) against their plain versions on the card."""
+    import torch
+    from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.tools._timing import cuda_ms
+
+    @phase("2m curve kernels")
+    def run():
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(13)
+        n, k = CURVE_LANES, CURVE_LANES // 16
+        times, buckets, err = {}, {}, 0
+        for group in CURVE_GROUPS:
+            ops, fq, g2 = _curve_ops(group)
+            plain, counter = ops.plain(), ops.counter("curve_op")
+            a, b, am, bm = _curve_lanes(ops, fq, g2, n, gen)
+            g = ops.from_host([ops.curve.generator()], dev)
+            pbytes = 3 * ops.f.num_limbs * 4
+            cases = {
+                "add": (lambda: ops.add(a, b), lambda: plain.add(a, b),
+                        {"add": n - 6 * k, "add_head": 3 * k, "double": 2 * k}, 3 * n * pbytes),
+                "add_mixed": (lambda: ops.add_mixed(am, bm), lambda: plain.add_mixed(am, bm),
+                              {"add_mixed": n - 5 * k, "add_mixed_head": 2 * k, "double": k},
+                              3 * n * pbytes),
+                "double": (lambda: ops.double(a), lambda: plain.double(a), {"double": n},
+                           2 * n * pbytes),
+                "add_mixed, one point broadcast": (
+                    lambda: ops.add_mixed(a, g), lambda: plain.add_mixed(a, g),
+                    {"add_mixed": n - 2 * k}, (2 * n + 1) * pbytes),
+            }
+            times[group] = {}
+            for name, (kern, pl, counts, nbytes) in cases.items():
+                native.launches[counter] = 0
+                got = kern()
+                torch.cuda.synchronize()
+                check(native.launches[counter] == 1, f"{group} {name}: "
+                      f"{native.launches[counter]} launches of kernel 10, not 1")
+                t0 = time.perf_counter()
+                want = pl()
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                err = max(err, max(max_abs_err(x, y) for x, y in zip(got, want)))
+                check(err == 0, f"{group} {name}: kernel 10 != its plain version")
+                del got, want
+                ms = cuda_ms(kern, 3)
+                b_ms, b_by = _curve_bound(state, group, counts, nbytes)
+                times[group][name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                                      "share": b_ms / ms, "plain_ms": plain_ms}
+            del a, b, am, bm, cases
+            torch.cuda.empty_cache()
+            # kernel 11 over skewed ids at 2^10 points, 5-bit windows (the
+            # plain version's time grows with its levels' steps; phases 5f
+            # and 5h hold the kernel over the MSMs' own ids at 2^16)
+            ids = _skewed_ids(1 << 10, 5, gen)
+            pts = (_curve_values(fq, g2, 1 << 10, gen), _curve_values(fq, g2, 1 << 10, gen),
+                   ops.f.ones((1 << 10,), dev))
+            buckets[group] = _hold_bucket_phase(state, group, ops, ids, pts, 1 << 5,
+                                                "skewed ids (uniform, one bucket, mostly 0 and "
+                                                "1, half zeros) of 2^10 points, c = 5")
+            del ids, pts
+            torch.cuda.empty_cache()
+        for name, group in (("curve_op", "bn254_g1"), ("curve_op_bls12_377", "bls12_377_g2")):
+            t = times[group]["add_mixed"]
+            state["kernels"][name].update(
+                max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None,
+                shape=f"{group} add_mixed over {n} lanes (17 x 2^16, the MSMs' scan width)")
+        state["curve_op"], state["bucket_skewed"] = times, buckets
+        return ("kernel 10: add, add_mixed, double and a broadcast operand bitwise equal to "
+                f"plain for {', '.join(CURVE_GROUPS)} at {n} lanes; kernel 11 bitwise equal "
+                "to plain over skewed ids; " + json.dumps({"curve_op": times,
+                                                           "msm_bucket": buckets}))
+    run()
+
+
 def _plonk_fixture_proof(case: str, dev) -> tuple:
     """Prove a Plonk fixture circuit on ``dev`` (SRS on the card too); the
     proof as ``proof_to_json``, the fixture, and whether it verified."""
@@ -1478,6 +1834,39 @@ def phase_bn254_fixture(state):
     run()
 
 
+def _msm_kernels(state, group, ops, digits, pts_dev, at: str):
+    """Kernel 11 held against its plain version over a Pippenger MSM's own
+    ids (its record in the kernels line, for the main path's groups), and
+    every kernel of three more Pippenger MSMs traced: fewer than
+    MSM_KERNELS_MAX of any kind in the fullest trace."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+    from lambda_elliptic_curves_tpu_torch.tools._timing import profile
+
+    curve = ops.curve
+    B = digits.shape[-1]
+    c = min(M.optimum_window_size(B), 15)
+    n_windows = -(-M._scalar_bits(curve) // c)
+    ids = M.window_ids(digits, c, n_windows)
+    bucket = _hold_bucket_phase(state, group, ops, ids, pts_dev, 1 << c,
+                                f"the ids of phase {at}'s MSM ({n_windows} windows of {B} "
+                                f"points, c = {c})")
+    name = {"bn254_g1": "msm_bucket", "bls12_377_g2": "msm_bucket_bls12_377"}.get(group)
+    if name:
+        state["kernels"][name].update(
+            max_abs_err=bucket["max_abs_err"], ms=bucket["ms"], plain_ms=bucket["plain_ms"],
+            bound_ms=bucket["bound_ms"], bound_by=bucket["bound_by"], library_ms=None,
+            shape=f"{group} bucket phase ({bucket['launches']} launches: accumulate and "
+                  f"reduce levels; the stable sort and the table's fill included) over "
+                  + bucket["what"])
+    # the tracer can drop kernel records: the most of three traces
+    traces = [profile(lambda: M.msm_pippenger(curve, digits, pts_dev, ops=ops))[1]
+              for _ in range(3)]
+    traced = max(traces, key=lambda t: t["kernels"])
+    check(traced["kernels"] < MSM_KERNELS_MAX, f"{group}: a Pippenger MSM of {B} points ran "
+          f"{traced['kernels']} kernels, not fewer than {MSM_KERNELS_MAX}")
+    return bucket, {**traced, "kernels_by_trace": [t["kernels"] for t in traces]}
+
+
 def phase_bn254_msm(state):
     import numpy as np
     import torch
@@ -1514,6 +1903,8 @@ def phase_bn254_msm(state):
                           "launches": {k: v for k, v in native.launches.items() if v}}
         check(out["pippenger"]["value"] == out["double_and_add"]["value"],
               "Pippenger != double-and-add at 2^16 points")
+        bucket, traced = _msm_kernels(state, "bn254_g1", ops, digits, pts_dev, "5f")
+        out["pippenger"]["bucket_phase"], out["pippenger"]["traced"] = bucket, traced
         # 2^10 points against the host MSM
         host_pts = ops.to_host(tuple(c[:, :1 << 10] for c in pts_dev))
         want = M.msm_naive_host(scalars[:1 << 10], host_pts)
@@ -1563,10 +1954,13 @@ def phase_bn254_plonk(state):
         check(cpi.n == n, f"the circuit has {cpi.n} rows, not {n}")
         t["preprocess_s"] = time.perf_counter() - t0
         M._comb_tables.clear()  # a first SRS: the comb's table is built in it
+        native.launches.update({k: 0 for k in native.launches})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         srs = StructuredReferenceString.insecure_setup(BN254Pairing, n + 6, tau=7913, device=dev)
+        torch.cuda.synchronize()
         t["srs_s"] = time.perf_counter() - t0
+        state["launches_srs"] = dict(native.launches)
         g = BN254Pairing.g1_curve.generator()
         for i in (0, 1, n + 5):  # the card's points against host scalar multiplications
             check(srs.powers_main_group[i] == g.operate_with_self(pow(7913, i, BN254Pairing.r)),
@@ -1614,6 +2008,7 @@ def phase_bn254_plonk(state):
         return json.dumps({"metric": f"plonk_bn254_prove_2^{PLONK_LOG_GATES}",
                            "value": round(runs["warm"]["ms"], 3), "unit": "ms", "check": "ok",
                            **state["plonk"], "launches": state["launches_plonk"],
+                           "launches_srs": {k: v for k, v in state["launches_srs"].items() if v},
                            "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)})
     run()
 
@@ -1709,6 +2104,9 @@ def phase_bls12_377_msm(state):
                               "launches": {k: v for k, v in native.launches.items() if v}}
             check(res["pippenger"]["value"] == res["double_and_add"]["value"],
                   f"{group}: Pippenger != double-and-add at 2^{G2_MSM_LOG_POINTS} points")
+            bucket, traced = _msm_kernels(state, f"bls12_377_{group}", ops, digits, pts_dev,
+                                          "5h")
+            res["pippenger"]["bucket_phase"], res["pippenger"]["traced"] = bucket, traced
             # 2^8 points against the host MSM, and the comb's points against
             # host scalar multiplications
             host_pts = ops.to_host(tuple(c[:, :1 << 8] for c in pts_dev))
@@ -1768,6 +2166,7 @@ def phase_groth16(state):
         torch.cuda.synchronize()
         t["setup_s"] = time.perf_counter() - t0
         setup_launches = {k: v for k, v in native.launches.items() if v}
+        state["launches_groth16_setup"] = dict(native.launches)
         t0 = time.perf_counter()
         cached = setup(qap, cfg, random.Random(9), device=dev)
         torch.cuda.synchronize()
@@ -1860,30 +2259,53 @@ def phase_launches(state):
             for k in set(STARK252_KERNELS + ("field_pow",)) - set(SMALL_KERNELS):
                 check(counts.get(k, 0) == 0, f"the {name} prove launched the Stark252 kernel {k}")
         for rows, counts, _ in runs:
-            for k in BN254_KERNELS:
+            for k in BN254_KERNELS + BN254_SETUP_KERNELS:
                 check(counts.get(k, 0) == 0, f"the Stark252 {rows}-row prove launched {k}")
         for name, counts in small_runs.items():
-            for k in BN254_KERNELS:
+            for k in BN254_KERNELS + BN254_SETUP_KERNELS:
                 check(counts.get(k, 0) == 0, f"the {name} prove launched {k}")
         # the Plonk prove: kernel 1's BN254 Fr entry, kernels 8 and 9, and no
         # kernel of the STARK paths (its transcript hashes on the host)
         plonk = state["launches_plonk"]
         for k in BN254_KERNELS:
             check(plonk.get(k, 0) > 0, f"kernel {k} was not launched by the Plonk prove")
-        for k in set(STARK252_KERNELS + SMALL_KERNELS + BLS_KERNELS + ("field_pow",)):
+        for k in set(STARK252_KERNELS + SMALL_KERNELS + BLS_KERNELS + BLS_SETUP_KERNELS
+                     + ("field_pow",)):
             check(plonk.get(k, 0) == 0, f"the Plonk prove launched {k}")
+        # its SRS: the comb's mixed additions on kernel 10
+        srs = state["launches_srs"]
+        for k in BN254_SETUP_KERNELS:
+            check(srs.get(k, 0) > 0, f"kernel {k} was not launched by the SRS")
+        for k in set(STARK252_KERNELS + SMALL_KERNELS + BLS_KERNELS + BLS_SETUP_KERNELS):
+            check(srs.get(k, 0) == 0, f"the SRS launched {k}")
         # the Groth16 prove over BLS12-377: the BLS12-377 instances of kernels
         # 1, 8 and 9, and nothing else
         groth16 = state["launches_groth16"]
         for k in BLS_KERNELS:
             check(groth16.get(k, 0) > 0, f"kernel {k} was not launched by the Groth16 prove")
-        for k in set(STARK252_KERNELS + SMALL_KERNELS + BN254_KERNELS + ("field_pow",)):
+        for k in set(STARK252_KERNELS + SMALL_KERNELS + BN254_KERNELS + BN254_SETUP_KERNELS
+                     + ("field_pow",)):
             check(groth16.get(k, 0) == 0, f"the Groth16 prove launched {k}")
+        check(groth16["dense_field_bls12_377"] < GROTH16_DENSE_FIELD_MAX,
+              f"the Groth16 prove launched kernel 8 {groth16['dense_field_bls12_377']} times, "
+              f"not fewer than {GROTH16_DENSE_FIELD_MAX}")
+        # its setup: the combs' mixed additions on kernel 10
+        g16_setup = state["launches_groth16_setup"]
+        for k in BLS_SETUP_KERNELS:
+            check(g16_setup.get(k, 0) > 0, f"kernel {k} was not launched by the Groth16 setup")
+        for k in set(STARK252_KERNELS + SMALL_KERNELS + BN254_KERNELS + BN254_SETUP_KERNELS):
+            check(g16_setup.get(k, 0) == 0, f"the Groth16 setup launched {k}")
         for counts in [c for _, c, _ in runs] + list(small_runs.values()):
-            for k in BLS_KERNELS:
+            for k in BLS_KERNELS + BLS_SETUP_KERNELS:
                 check(counts.get(k, 0) == 0, f"a STARK prove launched {k}")
         for name in KERNELS:
-            if name in BLS_KERNELS:  # the main path of this slice: Groth16 at 2^16
+            if name in BLS_SETUP_KERNELS:  # the Groth16 setup of phase 5i
+                state["kernels"][name]["launches"] = g16_setup[name]
+                continue
+            if name in BN254_SETUP_KERNELS:  # the Plonk SRS of phase 5g
+                state["kernels"][name]["launches"] = srs[name]
+                continue
+            if name in BLS_KERNELS:  # the main path of slice 9: Groth16 at 2^16
                 state["kernels"][name]["launches"] = groth16[name]
                 continue
             if name in BN254_KERNELS:  # the main path of slice 8: Plonk at 2^16 gates
@@ -1896,8 +2318,9 @@ def phase_launches(state):
             state["kernels"][name]["launches"] = (state["launches_preset"] if name == "grind"
                                                   else state["launches"])[name]
         return json.dumps({**{rows: counts for rows, counts, _ in runs}, **small_runs,
-                           f"plonk 2^{PLONK_LOG_GATES}": plonk,
-                           f"groth16 2^{GROTH16_LOG_CONSTRAINTS}": groth16})
+                           f"plonk 2^{PLONK_LOG_GATES}": plonk, "plonk srs": srs,
+                           f"groth16 2^{GROTH16_LOG_CONSTRAINTS}": groth16,
+                           "groth16 setup": g16_setup})
     run()
 
 
@@ -1994,7 +2417,8 @@ def main() -> int:
     state = {"kernels": {k: {"name": k, "route": "cuda", **v} for k, v in KERNELS.items()}}
     try:
         for run_phase in (phase_build, phase_kernels, phase_small_kernels, phase_bn254_kernels,
-                          phase_bls12_377_kernels, phase_fixture, phase_bn254_fixture,
+                          phase_bls12_377_kernels, phase_curve_kernels, phase_fixture,
+                          phase_bn254_fixture,
                           phase_groth16_fixture, phase_bench, phase_big, phase_small_proves,
                           phase_bn254_msm, phase_bn254_plonk, phase_bls12_377_msm,
                           phase_groth16, phase_launches, phase_profile):
@@ -2007,6 +2431,7 @@ def main() -> int:
         return 1
 
     summary = {"card": state["smi"], "build_s": round(state["build_s"], 3),
+               "build_seconds": state["build_seconds"], "ptxas": state["ptxas"],
                "fft_ms": {f"2^{k}": {"kernel": t[0], "bound": t[1]}
                           for k, t in state["fft_times"].items()},
                "interpolate_2^22_ms": state["interp_22_ms"],
@@ -2026,6 +2451,7 @@ def main() -> int:
                f"launches_plonk_2^{PLONK_LOG_GATES}": state["launches_plonk"],
                "bls12_377_field": state["bls12_377_field"],
                "bls12_377_ntt": state["bls12_377_ntt"],
+               "curve_op": state["curve_op"], "msm_bucket_skewed": state["bucket_skewed"],
                f"bls12_377_msm_2^{G2_MSM_LOG_POINTS}": state["msm_bls12_377"],
                f"groth16_2^{GROTH16_LOG_CONSTRAINTS}": state["groth16"],
                f"launches_groth16_2^{GROTH16_LOG_CONSTRAINTS}": state["launches_groth16"],

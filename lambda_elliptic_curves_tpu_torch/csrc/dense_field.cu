@@ -6,9 +6,10 @@
 // as 16-bit-digit XLA programs (lambda_elliptic_curves_tpu/ops/limbs.py
 // mont_mul :750, add :600, sub :610, neg :624, mont_square :829, mont_pow
 // :860).  Plonk's round-3 quotient runs on it over BN254 Fr, Groth16's QAP
-// over BLS12-377 Fr, and every curve formula of the MSMs over Fq
-// (curves/weierstrass.py JacobianOps; G2's Fp2 formulas compose it,
-// fields/extensions.py).
+// over BLS12-377 Fr, and the curves' elementwise Fq work (affine
+// conversions, the comb's table; G2's Fp2 ops compose it,
+// fields/extensions.py).  The group law runs on kernels 10 and 11
+// (curve.cu, msm_bucket.cu).
 //
 // Layout: an operand is (LIMBS, n) int32 limbs of x * R mod p (LIMBS = 8,
 // R = 2^256, or LIMBS = 12, R = 2^384); limb k of

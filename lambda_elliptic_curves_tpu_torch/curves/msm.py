@@ -8,18 +8,20 @@ Counterpart of ``lambda_elliptic_curves_tpu/curves/msm.py`` (``msm`` :437,
 
 Device routes, on the curve's batched group law (:func:`make_ops`:
 :class:`.weierstrass.JacobianOps` for G1, :class:`.twists.TwistJacobianOps`
-for G2; every field op a launch of kernel 8 on the card):
+for G2; every group op a launch of kernel 10 on the card):
 
 * ``msm_double_and_add``: every scalar multiplies its point in parallel,
   one bit a step (a doubling and a mixed addition over the batch), then one
   tree reduction;
-* ``msm_pippenger``: the bucket method with its windows vectorised, as in
-  the JAX package: the (windows, points) matrix of bucket ids is sorted
-  row by row, a segmented scan sums each bucket's run, the runs' totals are
-  scattered into the (windows, buckets) table, and sum_j j B_j of every
-  window is the sum of its suffix sums (a prefix scan of the reversed
-  buckets, then a tree reduction), all windows in each call.  The windows
-  combine on the host, most significant first (c doublings and an add
+* ``msm_pippenger``: the bucket method with its windows vectorised: the
+  (windows, points) matrix of bucket ids is sorted stably row by row, and
+  the bucket phase (:func:`bucket_sums`, :func:`weighted_bucket_sums`) runs
+  in chunks, one thread a chunk on the card (kernel 11,
+  ``csrc/msm_bucket.cuh``): about one mixed addition a point and two
+  additions a bucket, whatever the skew of the scalars (the JAX package's
+  ``bucket_accumulate_chunked`` :107 scans rows of columns, then runs a
+  segmented scan over the columns).  The window sums go affine on the host
+  and combine there, most significant first (c doublings and an add
   each), where the JAX package runs that in a small device scan.
 
 ``msm`` sends instances of ``HOST_MSM_MAX`` points or fewer to the host
@@ -37,11 +39,14 @@ once on the host, so each lane takes one mixed addition a window (32 for a
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
+from .. import native
 from .weierstrass import JacobianOps
 
 #: instances of this many points or fewer run on the host (the JAX
@@ -50,6 +55,12 @@ HOST_MSM_MAX = 64
 
 #: scalars are held as 16-bit digits (bit containers, no field arithmetic)
 DIGIT_BITS = 16
+
+#: positions of a chunk of the bucket phase's accumulate, and buckets of a
+#: chunk of its reduce (a power of two): kernel 11 and its plain version
+#: take the same, so their results are bitwise equal
+BUCKET_CHUNK = 16
+REDUCE_CHUNK = 16
 
 #: bits of a window of ``fixed_base_multiples``: a table of 2^c points a
 #: window, built on the host; c = 8 takes 32 windows over a 253-bit order
@@ -119,51 +130,240 @@ def optimum_window_size(n: int) -> int:
 
 
 def window_ids(digits: torch.Tensor, c: int, n_windows: int) -> torch.Tensor:
-    """``(W, B)`` bucket ids: bits [w c, (w + 1) c) of every scalar."""
-    ids = []
-    for w in range(n_windows):
-        start = w * c
-        k, shift = divmod(start, DIGIT_BITS)
-        lo = digits[k] >> shift
-        if k + 1 < digits.shape[0] and shift + c > DIGIT_BITS:
-            lo = lo | (digits[k + 1] << (DIGIT_BITS - shift))
-        ids.append(lo & ((1 << c) - 1))
-    return torch.stack(ids)
+    """``(W, B)`` bucket ids: bits [w c, (w + 1) c) of every scalar (c <= 16),
+    all windows at once."""
+    dev = digits.device
+    starts = torch.arange(n_windows, dtype=torch.int64) * c
+    k, shift = (starts // DIGIT_BITS).to(dev), (starts % DIGIT_BITS).to(dev)
+    padded = torch.cat([digits, torch.zeros_like(digits[:1])])
+    lo = padded[k] >> shift[:, None]
+    hi = padded[k + 1] << (DIGIT_BITS - shift)[:, None]
+    return (lo | hi) & ((1 << c) - 1)
 
 
-def bucket_sums(ops, ids: torch.Tensor, points_dev, nbuckets: int):
-    """(x, y, z) of shape (8, W, nbuckets): bucket j of window w is the sum
-    of the points whose id in window w is j (bucket 0 neutral).  Each row
-    is sorted by id, a segmented scan sums every run of equal ids, and the
-    runs' last elements (their totals) are scattered into the table."""
-    W, B = ids.shape
+# -- the bucket phase: kernel 11 on the card, its plain version on the CPU ------
+
+def _neutral_planes(ops, n: int, dev):
+    """The neutral point over ``n`` lanes, three contiguous (L, n) planes."""
+    return tuple(c.contiguous() for c in ops.neutral((n,), dev))
+
+
+def _accumulate_level_native(ops, call, ids, order, pts, chunk, table, nbuckets, mixed):
+    """One accumulate level of ``csrc/msm_bucket.cuh``: its 22 arguments
+    handed to ``call(args, mixed)`` (on the card one launch of kernel 11);
+    the next level's slots, or None at the last level."""
+    W, S = ids.shape
+    K = -(-S // chunk)
+    L, dev = ops.f.num_limbs, ids.device
+    ids = ids.contiguous()
+    order = None if order is None else order.contiguous()
+    n_in = pts[0].shape[-1]
+    pts_arg, keep = ops.points_arg(pts, (n_in,), n_in, dev.type)
+    slots = None
+    if K > 1:
+        slots = (torch.empty((W, 2 * K), dtype=torch.int64, device=dev),
+                 tuple(torch.empty((L, W * 2 * K), dtype=torch.int32, device=dev)
+                       for _ in range(3)))
+    desc = ([W, S, chunk, nbuckets, ids.data_ptr(), 0 if order is None else order.data_ptr()]
+            + pts_arg + [t.data_ptr() for t in table]
+            + ([0] * 4 if slots is None else [slots[0].data_ptr()]
+               + [t.data_ptr() for t in slots[1]]))
+    call((ctypes.c_long * 22)(*desc), mixed)
+    return slots
+
+
+def _accumulate_level_plain(ops, ids, order, pts, chunk, table, nbuckets, mixed):
+    """Kernel 11's accumulate level in PyTorch: the chunks' walks side by
+    side, one position of every chunk a step."""
+    W, S = ids.shape
+    K = -(-S // chunk)
     dev = ids.device
-    sorted_ids, order = torch.sort(ids, dim=-1)
-    pts = tuple(c[:, order] for c in points_dev)  # (8, W, B)
-    pts = ops.select(sorted_ids != 0, pts, ops.neutral((W, B), dev))
-    change = sorted_ids[:, 1:] != sorted_ids[:, :-1]
-    head = torch.cat([torch.ones((W, 1), dtype=torch.bool, device=dev), change], dim=-1)
-    last = torch.cat([change, torch.ones((W, 1), dtype=torch.bool, device=dev)], dim=-1)
-    sums = ops.segmented_scan(pts, head)
-    slots = (torch.arange(W, device=dev)[:, None] * nbuckets + sorted_ids)[last]
-    table = ops.neutral((W * nbuckets,), dev)
-    out = []
-    for t, s in zip(table, sums):
-        t = t.clone()
-        t[:, slots] = s.reshape(t.shape[0], -1)[:, last.reshape(-1)]
-        out.append(t.reshape(t.shape[0], W, nbuckets))
-    return tuple(out)
+    pad = K * chunk - S
+    idv = torch.nn.functional.pad(ids, (0, pad)).reshape(W, K, chunk)
+    elem = (torch.arange(W * S, device=dev).reshape(W, S) if order is None else order)
+    elemv = torch.nn.functional.pad(elem, (0, pad)).reshape(W, K, chunk)
+    last_level = K == 1
+    rows = (torch.arange(W, device=dev)[:, None] * nbuckets).expand(W, K)
+    acc = ops.neutral((W, K), dev)
+    acc_id = torch.zeros((W, K), dtype=torch.int64, device=dev)
+    have = torch.zeros((W, K), dtype=torch.bool, device=dev)
+    first_open = torch.ones((W, K), dtype=torch.bool, device=dev)
+    slot0, slot0_id = ops.neutral((W, K), dev), torch.zeros_like(acc_id)
+    add = ops.add_mixed if mixed else ops.add
+
+    def to_table(mask, pt, pt_id):
+        cols = (rows + pt_id)[mask]
+        for t, c in zip(table, pt):
+            t[:, cols] = c[:, mask]
+
+    for step in range(chunk):
+        cur = idv[:, :, step]
+        valid = cur != 0
+        q = tuple(c[:, elemv[:, :, step]] for c in pts)
+        same = valid & have & (cur == acc_id)
+        new = valid & ~same
+        close = new & have
+        to_slot = close & first_open if not last_level else torch.zeros_like(close)
+        slot0 = ops.select(to_slot, acc, slot0)
+        slot0_id = torch.where(to_slot, acc_id, slot0_id)
+        to_table(close & ~to_slot, acc, acc_id)
+        first_open = first_open & ~close
+        if bool(same.any()):
+            acc = ops.select(same, add(acc, q), acc)
+        acc = ops.select(new, q, acc)
+        acc_id = torch.where(new, cur, acc_id)
+        have = have | valid
+    if last_level:
+        to_table(have, acc, acc_id)
+        return None
+    one_run, more = have & first_open, have & ~first_open
+    slot0 = ops.select(one_run, acc, slot0)
+    slot0_id = torch.where(one_run, acc_id, slot0_id)
+    slot1 = ops.select(more, acc, ops.neutral((W, K), dev))
+    slot1_id = torch.where(more, acc_id, torch.zeros_like(acc_id))
+    return (torch.stack([slot0_id, slot1_id], dim=-1).reshape(W, 2 * K),
+            tuple(torch.stack([a, b], dim=-1).reshape(a.shape[0], W * 2 * K)
+                  for a, b in zip(slot0, slot1)))
 
 
-def weighted_bucket_sums(ops, buckets):
-    """sum_j j B_j along the last axis, as the sum of the suffix sums
-    S_1 .. S_(n-1): (8, W, 1)."""
-    rev = tuple(torch.flip(c, dims=(-1,))[..., :-1] for c in buckets)  # B_(n-1) .. B_1
-    n = rev[0].shape[-1]
-    head = torch.zeros(rev[0].shape[1:], dtype=torch.bool, device=rev[0].device)
-    head[..., 0] = True
-    return ops.tree_reduce(ops.segmented_scan(rev, head)) if n else \
-        ops.neutral(rev[0].shape[1:-1] + (1,), rev[0].device)
+def _bucket_sums(ops, level, ids, points_dev, nbuckets: int, chunk: int):
+    """The accumulate levels, ``level`` (kernel 11's or the plain version's)
+    run on each: level 0 over the sorted ids and the points read through
+    the sort's permutation (mixed additions), each next level over the
+    slots of the last (full additions), until one chunk holds a window."""
+    if chunk < 4:  # 2 ceil(S / chunk) slots: fewer than S positions only from 4 on
+        raise ValueError("the accumulate's chunk is 4 positions or more")
+    W = ids.shape[0]
+    dev = ids.device
+    sorted_ids, order = torch.sort(ids, dim=-1, stable=True)
+    table = _neutral_planes(ops, W * nbuckets, dev)
+    seq_ids, seq_order, seq_pts, mixed = sorted_ids, order, points_dev, True
+    while True:
+        slots = level(seq_ids, seq_order, seq_pts, chunk, table, nbuckets, mixed)
+        if slots is None:
+            return tuple(t.reshape(t.shape[0], W, nbuckets) for t in table)
+        seq_ids, seq_order, seq_pts, mixed = slots[0], None, slots[1], False
+
+
+def bucket_sums(ops, ids: torch.Tensor, points_dev, nbuckets: int, chunk: int = BUCKET_CHUNK):
+    """(x, y, z) of shape (L, W, nbuckets): bucket j of window w is the sum
+    of the points whose id in window w is j (bucket 0 neutral).  Each row
+    is sorted stably by id and walked in chunks of ``chunk`` positions
+    (``csrc/msm_bucket.cuh``): kernel 11 on the card, a launch a level; the
+    plain version on the CPU."""
+    group = ops.kernel_group(points_dev)
+    if group is None:
+        return _bucket_sums(ops, functools.partial(_accumulate_level_plain, ops), ids,
+                            points_dev, nbuckets, chunk)
+
+    def call(args, mixed):
+        native.launch(ops.counter("msm_bucket"), "lw_msm_bucket_accumulate", group,
+                      int(mixed), args)
+    return _bucket_sums(ops, functools.partial(_accumulate_level_native, ops, call), ids,
+                        points_dev, nbuckets, chunk)
+
+
+def bucket_sums_plain(ops, ids: torch.Tensor, points_dev, nbuckets: int,
+                      chunk: int = BUCKET_CHUNK):
+    """:func:`bucket_sums`' plain version on any device (the plain group
+    law, ``ops.plain()``): what kernel 11 is held against on the card."""
+    ops = ops.plain()
+    return _bucket_sums(ops, functools.partial(_accumulate_level_plain, ops), ids, points_dev,
+                        nbuckets, chunk)
+
+
+def _reduce_level_native(ops, call, bk, carry, chunk, dbl):
+    """One reduce level of ``csrc/msm_bucket.cuh``: its 28 arguments handed
+    to ``call(args)`` (on the card one launch of kernel 11); (R, C), three
+    (L, W, K) planes each."""
+    L, W, N = bk[0].shape
+    K = -(-N // chunk)
+    dev = bk[0].device
+    flat = lambda pt: tuple(c.reshape(L, W * N) for c in pt)  # noqa: E731
+    bk_arg, keep = ops.points_arg(flat(bk), (W * N,), W * N, dev.type)
+    carry_arg = [0] * 9
+    if carry is not None:
+        carry_arg, keep_carry = ops.points_arg(flat(carry), (W * N,), W * N, dev.type)
+    r = tuple(torch.empty((L, W * K), dtype=torch.int32, device=dev) for _ in range(3))
+    c = tuple(torch.empty((L, W * K), dtype=torch.int32, device=dev) for _ in range(3))
+    desc = ([W, N, chunk, dbl] + bk_arg + carry_arg + [t.data_ptr() for t in r]
+            + [t.data_ptr() for t in c])
+    call((ctypes.c_long * 28)(*desc))
+    return tuple(t.reshape(L, W, K) for t in r), tuple(t.reshape(L, W, K) for t in c)
+
+
+def _reduce_level_plain(ops, bk, carry, chunk, dbl):
+    """Kernel 11's reduce level in PyTorch, the chunks side by side: A_i =
+    B_(i+1) walked down a chunk with a running sum and the sum of the
+    running sums; the carried C's summed up; C = that sum + the sum of
+    running sums doubled ``dbl`` times.  A step in which no chunk adds
+    anything but the neutral point (the complete addition returns the other
+    operand exactly) is left out."""
+    L, W, N = bk[0].shape
+    K = -(-N // chunk)
+    dev = bk[0].device
+
+    def chunked(pt, start, count):
+        pad = K * chunk - count
+        fill = ops.neutral((W, pad), dev)
+        return tuple(torch.cat([c[..., start:], f], dim=-1).reshape(L, W, K, chunk)
+                     for c, f in zip(pt, fill))
+
+    finite = lambda pt: ~ops.f.is_zero(pt[2])  # noqa: E731
+    A = chunked(bk, 1, N - 1)
+    run, acc = ops.neutral((W, K), dev), ops.neutral((W, K), dev)
+    for step in reversed(range(min(chunk, N - 1) if K == 1 else chunk)):
+        a = tuple(c[..., step] for c in A)
+        if not bool((finite(a) | finite(run)).any()):
+            continue  # run and a neutral everywhere: run, acc stay
+        run = ops.add(run, a)
+        acc = ops.add(acc, run)
+    if carry is not None:
+        C = chunked(carry, 0, N)
+        d = ops.neutral((W, K), dev)
+        for step in range(min(chunk, N) if K == 1 else chunk):
+            c_step = tuple(c[..., step] for c in C)
+            if bool(finite(c_step).any()):
+                d = ops.add(d, c_step)
+        for _ in range(dbl):
+            acc = ops.double(acc)
+        acc = ops.add(d, acc)
+    return run, acc
+
+
+def _weighted_bucket_sums(level, buckets, chunk: int):
+    """The reduce levels, ``level`` (kernel 11's or the plain version's) run
+    on each, until one chunk holds a window: its C is the window's sum."""
+    if chunk < 2 or chunk & (chunk - 1):
+        raise ValueError("the reduce's chunk is a power of two")
+    bk, carry, depth = buckets, None, 0
+    while True:
+        N = bk[0].shape[-1]
+        r, c = level(bk, carry, chunk, depth * (chunk.bit_length() - 1))
+        if N <= chunk:
+            return c
+        bk, carry, depth = r, c, depth + 1
+
+
+def weighted_bucket_sums(ops, buckets, chunk: int = REDUCE_CHUNK):
+    """sum_j j B_j along the last axis of (L, W, N) buckets: (L, W, 1), by
+    chunked running sums (``csrc/msm_bucket.cuh``): kernel 11 on the card,
+    a launch a level; the plain version on the CPU."""
+    group = ops.kernel_group(buckets)
+    if group is None:
+        return _weighted_bucket_sums(functools.partial(_reduce_level_plain, ops), buckets, chunk)
+
+    def call(args):
+        native.launch(ops.counter("msm_bucket"), "lw_msm_bucket_reduce", group, args)
+    return _weighted_bucket_sums(functools.partial(_reduce_level_native, ops, call), buckets,
+                                 chunk)
+
+
+def weighted_bucket_sums_plain(ops, buckets, chunk: int = REDUCE_CHUNK):
+    """:func:`weighted_bucket_sums`' plain version on any device: what
+    kernel 11 is held against on the card."""
+    return _weighted_bucket_sums(functools.partial(_reduce_level_plain, ops.plain()), buckets,
+                                 chunk)
 
 
 def msm_pippenger(curve, digits: torch.Tensor, points_dev, window_size: int | None = None,
@@ -177,7 +377,7 @@ def msm_pippenger(curve, digits: torch.Tensor, points_dev, window_size: int | No
     n_windows = -(-nbits // c)
     ids = window_ids(digits, c, n_windows)
     values = weighted_bucket_sums(ops, bucket_sums(ops, ids, points_dev, 1 << c))
-    windows = ops.to_host(tuple(v.reshape(v.shape[0], n_windows) for v in values))
+    windows = ops.to_host_exact(tuple(v.reshape(v.shape[0], n_windows) for v in values))
     acc = curve.neutral()
     for value in reversed(windows):  # most significant window first
         for _ in range(c):

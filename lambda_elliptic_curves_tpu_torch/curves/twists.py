@@ -11,8 +11,10 @@ A batch of G2 points is a triple of ``(2 L, *batch)`` Fp2 tensors (the
 :class:`..fields.extensions.DeviceQuadraticField` layout: component 0's L
 limbs, then component 1's), so :class:`.weierstrass.JacobianOps`'s group
 law, the MSM's bucket machinery and the batched scalar multiplications
-run unchanged over it: every Fp2 op composes base-field ops, which on a
-card are launches of kernel 8 (an Fp2 product 7, a sum 2).
+run unchanged over it.  On a card a G2 group op is one launch of kernel 10
+and the bucket phase runs on kernel 11 (their G2 instances: the Fp2
+product in registers, ``csrc/curve.cuh``); an Fp2 op outside them composes
+base-field ops, launches of kernel 8 (an Fp2 product 7, a sum 2).
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ class TwistCurve:
     gx: tuple
     gy: tuple
     order: int
+    #: the group's number in kernels 10 and 11 (``csrc/curve.cuh``
+    #: ``LW_CURVE_*``): BN254 G2 1, BLS12-377 G2 3; -1 for none
+    kernel_group: int = -1
 
     @property
     def jacobian_ops_class(self):
@@ -60,13 +65,15 @@ class TwistCurve:
 
 class TwistJacobianOps(JacobianOps):
     """Batched Jacobian group law over Fp2 tensors: every formula of
-    :class:`JacobianOps`; only the host conversions and the curve
+    :class:`JacobianOps` (on the card kernel 10's and 11's G2 instances,
+    the twist's ``kernel_group``); only the host conversions and the curve
     coefficient differ."""
 
-    def __init__(self, twist: TwistCurve):
+    def __init__(self, twist: TwistCurve, plain: bool = False):
         self.curve = twist
-        self.f = twist.field
+        self.f = twist.field.plain() if plain else twist.field
         self.a_is_zero = not any(int(c) for c in twist.a)
+        self._plain = plain
 
     def from_host(self, points, device):
         """Host AffinePoints over Fp2 -> (x, y, z) tensors (affine with z = 1,
@@ -95,6 +102,22 @@ class TwistJacobianOps(JacobianOps):
                 for a, b, ok in zip(xs, ys, fin)]
 
 
+    def to_host_exact(self, pt):
+        """(x, y, z) tensors of a few points -> host AffinePoints, the division
+        by z in the host's Fp2: one transfer and no device work."""
+        host = self.curve.host_field
+        out = []
+        for x, y, z in zip(*(self._canonical(c.reshape(c.shape[0], -1)) for c in pt)):
+            zh = host(z)
+            if zh.is_zero():
+                out.append(self.curve.neutral())
+                continue
+            zi = zh.inv()
+            zi2 = zi * zi
+            out.append(AffinePoint(host, host(x) * zi2, host(y) * zi2 * zi))
+        return out
+
+
 # ---------------------------------------------------------------------------
 # concrete twists (generators shared with the pairing configurations)
 # ---------------------------------------------------------------------------
@@ -109,6 +132,7 @@ def bn254_twist() -> TwistCurve:
         a=(0, 0), b=cfg.twist_b,
         gx=cfg.g2_x, gy=cfg.g2_y,
         order=FZ.BN254_ORDER,
+        kernel_group=1,
     )
 
 
@@ -123,6 +147,7 @@ def bls12_377_twist() -> TwistCurve:
         a=(0, 0), b=cfg.twist_b,
         gx=cfg.g2_x, gy=cfg.g2_y,
         order=FZ.BLS12_377_ORDER,
+        kernel_group=3,
     )
 
 

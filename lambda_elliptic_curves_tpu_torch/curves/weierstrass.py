@@ -6,25 +6,35 @@ Counterpart of ``lambda_elliptic_curves_tpu/curves/weierstrass.py``
 parity ``short_weierstrass/point.rs``).  The host path is the JAX
 package's exact projective arithmetic over Python ints.  On a device a
 batch of points is a triple of ``(L, *batch)`` limb tensors ``(x, y, z)``
-in Jacobian coordinates (infinity: z = 0), and the group law is
-straight-line field arithmetic with selects for the special cases.
-:class:`JacobianOps` is generic over its field object ``f``: G1's
-:class:`..fields.field.PrimeField` (every op one launch of kernel 8,
-``csrc/dense_field.cu``, on a CUDA tensor, its plain version on a CPU
-tensor), or G2's :class:`..fields.extensions.DeviceQuadraticField`
-(:class:`.twists.TwistJacobianOps`).  A G1 ``add`` is about 45 field
-launches (its doubling included) and a dozen ``torch.where``; a fused
-point-add kernel is ROADMAP work.
+in Jacobian coordinates (infinity: z = 0).
+
+:class:`JacobianOps`'s ``add``, ``add_mixed`` and ``double`` dispatch on the
+device of the points: on a CUDA tensor one launch of kernel 10
+(``csrc/curve.cu``, the whole formula in registers, the group the curve's
+``kernel_group``), and a group without an instance raises; on a CPU tensor
+the plain version, ``add_plain`` / ``add_mixed_plain`` / ``double_plain``:
+straight-line field arithmetic with selects for the special cases, generic
+over the field object ``f``, G1's :class:`..fields.field.PrimeField` or
+G2's :class:`..fields.extensions.DeviceQuadraticField`
+(:class:`.twists.TwistJacobianOps`).  :meth:`JacobianOps.plain` gives the
+plain group law on any device, which the kernels are held against on the
+card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import math
 
 import torch
 
+from .. import native
 from ..fields.field import PrimeField
 from ..utils.errors import CreationError
+
+#: kernel 10's ops (``csrc/curve.cuh`` ``LW_CURVE_ADD`` .. ``LW_CURVE_DOUBLE``)
+_ADD, _ADD_MIXED, _DOUBLE = range(3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +49,9 @@ class WeierstrassCurve:
     gy: int
     order: int = 0  # subgroup order (0 if unused)
     cofactor: int = 1
+    #: the group's number in kernels 10 and 11 (``csrc/curve.cuh``
+    #: ``LW_CURVE_*``): BN254 G1 0, BLS12-377 G1 2; -1 for none
+    kernel_group: int = -1
 
     def generator(self) -> "ProjectivePoint":
         return ProjectivePoint(self, self.gx, self.gy, 1)
@@ -160,15 +173,82 @@ class ProjectivePoint:
 
 
 class JacobianOps:
-    """Batched Jacobian group law over limb tensors for one curve, generic
-    over the field object ``f`` (its ``add``, ``sub``, ``mul``, ``square``,
-    ``batch_inverse``, ``is_zero``, ``select``, ``ones``, ``zeros``,
-    ``array``, ``constant``)."""
+    """Batched Jacobian group law over limb tensors for one curve: kernel 10
+    on the card; the plain version generic over the field object ``f`` (its
+    ``add``, ``sub``, ``mul``, ``square``, ``batch_inverse``, ``is_zero``,
+    ``select``, ``ones``, ``zeros``, ``array``, ``constant``).  With
+    ``plain`` every op is the plain version over the field's plain ops, on
+    any device."""
 
-    def __init__(self, curve: WeierstrassCurve):
+    def __init__(self, curve: WeierstrassCurve, plain: bool = False):
         self.curve = curve
-        self.f = curve.field
+        self.f = curve.field.plain() if plain else curve.field
         self.a_is_zero = curve.a % self.f.p == 0  # the doubling leaves out a z^4
+        self._plain = plain
+
+    def plain(self) -> "JacobianOps":
+        """This group law with every op its plain version, on any device: the
+        CPU route, which kernels 10 and 11 are held against on the card."""
+        return type(self)(self.curve, plain=True)
+
+    # -- kernels 10 and 11 ------------------------------------------------------
+    def kernel_group(self, *pts):
+        """The group's number in kernels 10 and 11 for points on a card, or
+        None for the plain route (CPU tensors, or a plain group law); raises
+        on a card for a group with no instance."""
+        if self._plain or all(c.device.type == "cpu" for pt in pts for c in pt):
+            return None
+        group = getattr(self.curve, "kernel_group", -1)
+        if group < 0 or not self.a_is_zero:
+            raise NotImplementedError(f"{self.curve.name}: kernels 10 and 11 have no instance "
+                                      "of this group")
+        return group
+
+    def counter(self, kernel: str) -> str:
+        """The launch counter of ``kernel`` ("curve_op", "msm_bucket") for
+        this curve: the BLS12-377 instances count apart."""
+        return kernel + getattr(self.f, "prime", self.f).ops.counter_suffix
+
+    def points_arg(self, pt, batch: tuple, n: int, device_type: str = "cuda"):
+        """(9 longs: kernel 10 / 11's ``LwPoints``, the tensors they point
+        into) for the points ``pt`` over the batch shape ``batch``: one
+        point broadcast over it with element stride 0, a ``(rows, n)``
+        plane set by its strides, anything else as a contiguous copy.  The
+        host tests build the same arguments for CPU tensors."""
+        rows = self.f.num_limbs
+        ptrs, row_strides, elem_strides, keep = [], [], [], []
+        for x in pt:
+            if x.dtype != torch.int32 or x.device.type != device_type or x.shape[0] != rows:
+                raise TypeError(f"kernels 10 and 11 take ({rows}, *batch) int32 "
+                                f"{device_type} tensors")
+            if n > 1 and all(s == 0 or d == 1 for s, d in zip(x.stride()[1:], x.shape[1:])):
+                es = 0
+            elif x.dim() == 2 and tuple(x.shape[1:]) == batch:
+                es = x.stride(1)
+            else:
+                x = x.expand((rows,) + batch).contiguous()
+                es = 1
+            ptrs.append(x.data_ptr())
+            row_strides.append(x.stride(0))
+            elem_strides.append(es)
+            keep.append(x)
+        return ptrs + row_strides + elem_strides, keep
+
+    def _op_cuda(self, group: int, op: int, p1, p2=None):
+        """One launch of kernel 10: ``op`` over the broadcast batch of the
+        points; three contiguous ``(L, *batch)`` tensors."""
+        shape = torch.broadcast_shapes(*(c.shape for pt in (p1, p2 or p1) for c in pt))
+        batch = tuple(shape[1:])
+        n = math.prod(batch)
+        out = tuple(torch.empty((self.f.num_limbs,) + batch, dtype=torch.int32,
+                                device=p1[0].device) for _ in range(3))
+        if n == 0:
+            return out
+        a, keep_a = self.points_arg(p1, batch, n)
+        b, keep_b = self.points_arg(p2 or p1, batch, n)
+        native.launch(self.counter("curve_op"), "lw_curve_op", group, op,
+                      (ctypes.c_long * 18)(*(a + b)), *(o.data_ptr() for o in out), n)
+        return out
 
     def _mul_a(self, v):
         """The curve's a times ``v``."""
@@ -220,6 +300,32 @@ class JacobianOps:
         return [ProjectivePoint(self.curve, int(a), int(b), 1) if ok else self.curve.neutral()
                 for a, b, ok in zip(xs, ys, fin)]
 
+    def _canonical(self, t):
+        """``(rows, n)`` Montgomery limbs -> the n values as host ints (G1) or
+        tuples of ints (G2): one transfer, R taken out on the host."""
+        prime = getattr(self.f, "prime", self.f)
+        L = prime.num_limbs
+        D = self.f.num_limbs // L
+        raw = prime.ops.limbs_to_ints(t.reshape(D, L, -1).transpose(0, 1))  # (D, n)
+        rinv = pow(prime.params.r, -1, prime.p)
+        vals = [[int(v) * rinv % prime.p for v in row] for row in raw]
+        return vals[0] if D == 1 else list(zip(*vals))
+
+    def to_host_exact(self, pt):
+        """(x, y, z) limb tensors of a few points -> affine host points, the
+        division by z done on the host in exact arithmetic: one transfer and
+        no device work (an MSM's window sums)."""
+        p = self.f.p
+        out = []
+        for x, y, z in zip(*(self._canonical(c.reshape(c.shape[0], -1)) for c in pt)):
+            if z == 0:
+                out.append(self.curve.neutral())
+                continue
+            zi = pow(z, -1, p)
+            zi2 = zi * zi % p
+            out.append(ProjectivePoint(self.curve, x * zi2 % p, y * zi2 % p * zi % p, 1))
+        return out
+
     def neutral(self, batch_shape, device):
         f = self.f
         return (f.ones(batch_shape, device), f.ones(batch_shape, device),
@@ -229,8 +335,28 @@ class JacobianOps:
         f = self.f
         return tuple(f.select(cond, a, b) for a, b in zip(pt_true, pt_false))
 
-    # -- group law ------------------------------------------------------------
+    # -- group law: kernel 10 on the card, the plain version on the CPU ---------
     def double(self, pt):
+        """Jacobian doubling (dbl-2007-bl); infinity and 2-torsion points give
+        z = 0."""
+        group = self.kernel_group(pt)
+        return self.double_plain(pt) if group is None else self._op_cuda(group, _DOUBLE, pt)
+
+    def add(self, p1, p2):
+        """Complete batched addition (add-2007-bl core)."""
+        group = self.kernel_group(p1, p2)
+        return self.add_plain(p1, p2) if group is None else self._op_cuda(group, _ADD, p1, p2)
+
+    def add_mixed(self, p1, p2):
+        """Mixed batched addition: ``p2`` affine-or-infinity (z in {0, 1},
+        as :meth:`from_host` gives).  Complete."""
+        group = self.kernel_group(p1, p2)
+        if group is None:
+            return self.add_mixed_plain(p1, p2)
+        return self._op_cuda(group, _ADD_MIXED, p1, p2)
+
+    # -- the plain versions: field arithmetic with selects ---------------------
+    def double_plain(self, pt):
         """Jacobian doubling (dbl-2007-bl, general a); infinity and 2-torsion
         points give z = 0."""
         f = self.f
@@ -257,13 +383,13 @@ class JacobianOps:
         f = self.f
         p1_inf, p2_inf = f.is_zero(p1[2]), f.is_zero(p2[2])
         same_x, same_y = f.is_zero(h), f.is_zero(r)
-        out = self.select(same_x & same_y, self.double(p1), out)
+        out = self.select(same_x & same_y, self.double_plain(p1), out)
         out = self.select(same_x & ~same_y & ~p1_inf & ~p2_inf,
                           self.neutral(out[0].shape[1:], out[0].device), out)
         out = self.select(p1_inf, p2, out)
         return self.select(p2_inf, p1, out)
 
-    def add(self, p1, p2):
+    def add_plain(self, p1, p2):
         """Complete batched addition (add-2007-bl core)."""
         f = self.f
         X1, Y1, Z1 = p1
@@ -284,10 +410,10 @@ class JacobianOps:
         z3 = f.mul(f.mul(Z1, Z2), h)
         return self._complete(p1, p2, (x3, y3, z3), h, r)
 
-    def add_mixed(self, p1, p2):
+    def add_mixed_plain(self, p1, p2):
         """Mixed batched addition: ``p2`` affine-or-infinity (z in {0, 1},
         as :meth:`from_host` gives), 4 products and a square fewer than
-        :meth:`add` (madd-2007-bl core).  Complete."""
+        :meth:`add_plain` (madd-2007-bl core).  Complete."""
         f = self.f
         X1, Y1, Z1 = p1
         X2, Y2, _ = p2

@@ -13,6 +13,7 @@ BN254Curve = WeierstrassCurve(
     a=0, b=3,
     gx=1, gy=2,
     order=F.BN254_ORDER,
+    kernel_group=0,
 )
 
 BLS12377Curve = WeierstrassCurve(
@@ -27,4 +28,5 @@ BLS12377Curve = WeierstrassCurve(
         "2fe3d3634a9591afd82de55559c8ea6", 16),
     order=F.BLS12_377_ORDER,
     cofactor=0x170B5D44300000000000000000000000,
+    kernel_group=2,
 )

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -46,15 +47,21 @@ COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
 #: (``csrc/batch_inverse.cu``), ``dense_ntt`` BN254 Fr's NTT passes
 #: (``csrc/ntt.cu``); ``dense_field_bls12_377``, ``dense_inv_bls12_377`` and
 #: ``dense_ntt_bls12_377`` the same kernels' BLS12-377 instances (Fq on six
-#: words, Fr on four)
+#: words, Fr on four); ``curve_op`` BN254's G1 and G2 group ops
+#: (``csrc/curve.cu``), ``msm_bucket`` their Pippenger bucket phase
+#: (``csrc/msm_bucket.cu``), and ``curve_op_bls12_377`` and
+#: ``msm_bucket_bls12_377`` BLS12-377's
 launches: dict = {"field": 0, "field_pow": 0, "field_inv": 0, "ntt": 0, "keccak": 0,
                   "grind": 0, "small_field": 0, "small_ntt": 0, "dense_field": 0,
                   "dense_inv": 0, "dense_ntt": 0, "dense_field_bls12_377": 0,
-                  "dense_inv_bls12_377": 0, "dense_ntt_bls12_377": 0}
+                  "dense_inv_bls12_377": 0, "dense_ntt_bls12_377": 0, "curve_op": 0,
+                  "msm_bucket": 0, "curve_op_bls12_377": 0, "msm_bucket_bls12_377": 0}
 
 #: source file name -> what ``nvcc`` printed while compiling it (with
-#: ``-Xptxas -v``: registers, shared memory and spills of each kernel)
+#: ``-Xptxas -v``: registers, shared memory and spills of each kernel), and
+#: the seconds from the build's start to its ``nvcc``'s end
 build_log: dict = {}
+build_seconds: dict = {}
 
 _lock = threading.Lock()
 _host = None
@@ -121,26 +128,40 @@ def cuda_sources() -> list:
 
 
 def _compile_cuda(so: str, srcs: list) -> None:
-    """One ``nvcc -c`` per source, all running at once, then one link."""
+    """One ``nvcc -c`` per source, all running at once, then one link; each
+    source's output and its seconds go to :data:`build_log` and
+    :data:`build_seconds`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
+    t0 = time.perf_counter()
     for src in srcs:
         obj = f"{so}.{os.path.basename(src)}.{os.getpid()}.o"
-        jobs.append((src, obj, subprocess.Popen(
+        log = open(f"{obj}.log", "w+")
+        jobs.append((src, obj, log, subprocess.Popen(
             [nvcc] + COMPILE_FLAGS + ["-c", "-o", obj, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            stdout=log, stderr=subprocess.STDOUT, text=True)))
+    pending = set(range(len(jobs)))
+    while pending:
+        for i in list(pending):
+            if jobs[i][3].poll() is not None:
+                build_seconds[os.path.basename(jobs[i][0])] = time.perf_counter() - t0
+                pending.discard(i)
+        time.sleep(0.05)
     failed = []
-    for src, _, proc in jobs:
-        build_log[os.path.basename(src)] = proc.communicate()[0]
+    for src, obj, log, proc in jobs:
+        log.seek(0)
+        build_log[os.path.basename(src)] = log.read()
+        log.close()
+        os.remove(f"{obj}.log")
         if proc.returncode != 0:
             failed.append(f"{src}:\n{build_log[os.path.basename(src)]}")
     try:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        _compile([nvcc] + NVCC_FLAGS, so, [obj for _, obj, _ in jobs])
+        _compile([nvcc] + NVCC_FLAGS, so, [obj for _, obj, _, _ in jobs])
     finally:
-        for _, obj, _ in jobs:
+        for _, obj, _, _ in jobs:
             if os.path.exists(obj):
                 os.remove(obj)
 
@@ -172,6 +193,9 @@ def cuda_lib():
                 "lw_dense_batch_inverse_plan": [I, L, P],
                 "lw_dense_batch_inverse": [I, P, P, P, L, P],
                 "lw_dense_ntt_passes": [I, P, P, P, P, P, L, I, I, P, I, P],
+                "lw_curve_op": [I, I, P, P, P, P, L, P],
+                "lw_msm_bucket_accumulate": [I, I, P, P],
+                "lw_msm_bucket_reduce": [I, P, P],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)

@@ -55,6 +55,7 @@ class DenseField(SmallField):
                              "or below 2^382 on 6")
         super().__init__(name, p, 2 * words, kernel_id)
         self.WORDS = words
+        self.counter_suffix = counter_suffix
         self.field_counter = "dense_field" + counter_suffix
         self.inv_counter = "dense_inv" + counter_suffix
         self.ntt_counter = "dense_ntt" + counter_suffix

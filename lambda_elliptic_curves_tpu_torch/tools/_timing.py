@@ -41,8 +41,9 @@ def cuda_ms(fn, reps: int) -> float:
 def profile(fn, top: int = 12):
     """(fn(), stats) with fn run under ``torch.profiler``: wall ms (host
     clock, ending in a synchronise), device busy ms (the union of kernel and
-    copy intervals on the card), idle share of the wall time, and ms and
-    launches of the ``top`` largest kernels."""
+    copy intervals on the card), idle share of the wall time, the kernels
+    launched (copies and memsets left out), and ms and launches of the
+    ``top`` largest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -52,11 +53,12 @@ def profile(fn, top: int = 12):
         value = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0
-    spans, by_kernel = [], {}
+    spans, by_kernel, kernels = [], {}, 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
+        kernels += not e.name.startswith(("Memcpy", "Memset"))
         name = e.name.split("(")[0].split("<")[0].replace("void ", "").strip()
         ms, count = by_kernel.get(name, (0.0, 0))
         by_kernel[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
@@ -69,6 +71,7 @@ def profile(fn, top: int = 12):
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     return value, {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
                    "idle_share": 1.0 - busy / 1e3 / wall_ms if wall_ms else None,
+                   "kernels": kernels,
                    "by_kernel": {k: {"ms": round(v[0], 4), "launches": v[1]}
                                  for k, v in ranked}}
 

@@ -410,6 +410,53 @@ def test_g2_msm_routes_equal_host_msm():
     assert ops.to_host(M.msm_double_and_add(tw, d, ops.from_host(points, "cpu"), ops)) == [want]
 
 
+def _skewed_scalars(case, n, order, c, seed):
+    """Scalars whose window ids pile up: all equal; mostly 0 and 1 (a
+    circom-style witness); all below 2^c (every id of the other windows 0)."""
+    rng = np.random.default_rng(seed)
+    rand = lambda: int.from_bytes(rng.bytes(32), "little") % order  # noqa: E731
+    if case == "all_equal":
+        return [rand()] * n
+    if case == "mostly_0_and_1":
+        return [0 if u < 0.45 else 1 if u < 0.9 else rand() for u in rng.random(n)]
+    return [int(v) for v in rng.integers(0, 1 << c, n)]
+
+
+@pytest.mark.parametrize("case, log_n", [("all_equal", 6), ("mostly_0_and_1", 7),
+                                         ("below_2^c", 6)])
+def test_g1_pippenger_skewed_scalars_equal_host_msm(case, log_n):
+    """The chunked bucket phase (kernel 11's plain version) over BLS12-377
+    G1 where the ids are skewed (2^6-2^7 points, 3-bit windows), against
+    msm_naive_host."""
+    n = 1 << log_n
+    g = BLS12377Curve.generator()
+    rng = random.Random(13)
+    points = [g.operate_with_self(rng.randrange(1, BLS12377Curve.order)) for _ in range(n)]
+    scalars = _skewed_scalars(case, n, BLS12377Curve.order, 3, 14)
+    ops = M.make_ops(BLS12377Curve)
+    digits = M.scalars_to_digits(BLS12377Curve, scalars, "cpu")
+    got = M.msm_pippenger(BLS12377Curve, digits, ops.from_host(points, "cpu"), window_size=3,
+                          ops=ops)
+    assert got == M.msm_naive_host(scalars, points)
+
+
+@pytest.mark.parametrize("case, log_n", [("all_equal", 6), ("mostly_0_and_1", 7),
+                                         ("below_2^c", 6)])
+def test_g2_pippenger_skewed_scalars_equal_host_msm(case, log_n):
+    """The same over G2, at a 16-bit order and 2-bit windows (the CPU's
+    plain G2 additions are the slowest), against msm_g2_naive_host."""
+    tw = dataclasses.replace(bls12_377_twist(), order=(1 << 16) + 1)
+    n = 1 << log_n
+    g = tw.generator()
+    rng = random.Random(15)
+    points = [g.mul(rng.randrange(1, 1000)) for _ in range(n)]
+    scalars = _skewed_scalars(case, n, tw.order, 2, 16)
+    ops = TwistJacobianOps(tw)
+    digits = M.scalars_to_digits(tw, scalars, "cpu")
+    got = M.msm_pippenger(tw, digits, ops.from_host(points, "cpu"), window_size=2, ops=ops)
+    assert got == msm_g2_naive_host(scalars, points)
+
+
 def _fp12(cfg, v):
     def nest(x):
         return tuple(nest(c) for c in x) if isinstance(x, list) else int(x, 16)

@@ -537,8 +537,142 @@ def test_msm_routes_agree_on_card(dev):
     want = M.msm_naive_host(scalars, points)
     native.launches.update({k: 0 for k in native.launches})
     assert M.msm(BN254Curve, scalars, points, device=dev) == want
-    assert native.launches["dense_field"] > 0 and native.launches["dense_inv"] > 0
+    # the bucket phase on kernel 11; the window sums go affine on the host,
+    # so no batch inversion (kernel 9) runs
+    assert native.launches["dense_field"] > 0 and native.launches["dense_inv"] == 0
+    assert native.launches["msm_bucket"] > 0
     assert M.msm(BN254Curve, scalars, points, method="naive", device=dev) == want
+
+
+_CURVE_GROUPS = ("bn254_g1", "bn254_g2", "bls12_377_g1", "bls12_377_g2")
+
+
+def _curve(group):
+    from lambda_elliptic_curves_tpu_torch.curves.twists import bls12_377_twist, bn254_twist
+    from lambda_elliptic_curves_tpu_torch.curves.zoo import BLS12377Curve, BN254Curve
+
+    return {"bn254_g1": BN254Curve, "bn254_g2": bn254_twist(),
+            "bls12_377_g1": BLS12377Curve, "bls12_377_g2": bls12_377_twist()}[group]
+
+
+def _random_triples(ops, n, seed, dev, affine=False):
+    """n Jacobian triples of random field values on the card (z nonzero; z =
+    1 when ``affine``): off the curve, which the formulas do not need."""
+    f = ops.f
+    rng = np.random.default_rng(seed)
+    g2 = f.num_limbs > 12
+
+    def vals(lo=0):
+        out = [int.from_bytes(rng.bytes(48), "little") % (f.p - lo) + lo
+               for _ in range(2 * n if g2 else n)]
+        return [(out[2 * i], out[2 * i + 1]) for i in range(n)] if g2 else out
+    z = f.ones((n,), dev) if affine else f.array(vals(1), dev)
+    return f.array(vals(), dev), f.array(vals(), dev), z
+
+
+def _curve_lanes(ops, n, dev):
+    """(a, b) lanes of every case of the complete addition, and (a, b) of the
+    mixed one (b affine): random pairs, P + P (the same triple and another
+    representative), P + (-P), operands at infinity."""
+    f = ops.f
+    a = _random_triples(ops, n, 1, dev)
+    b = _random_triples(ops, n, 2, dev)
+    aff = _random_triples(ops, n, 3, dev, affine=True)
+    k = n // 8
+    head = lambda pt: tuple(c[:, :k] for c in pt)  # noqa: E731
+    z = _random_triples(ops, k, 4, dev)[2]
+    z2 = f.mul(z, z)
+    other = (f.mul(a[0][:, :k], z2), f.mul(a[1][:, :k], f.mul(z2, z)), f.mul(a[2][:, :k], z))
+    neg = lambda pt: (pt[0], f.sub(f.zeros(pt[1].shape[1:], dev), pt[1]), pt[2])  # noqa: E731
+    inf = ops.neutral((k,), dev)
+    cat = lambda *pts: tuple(torch.cat(cs, dim=-1) for cs in zip(*pts))  # noqa: E731
+    # a Jacobian p1 with the same affine point as the affine p2
+    a_of_aff = (f.mul(aff[0][:, :k], z2), f.mul(aff[1][:, :k], f.mul(z2, z)), z)
+    return (cat(a, head(a), head(a), head(a), inf, head(a), inf),
+            cat(b, head(a), other, neg(other), head(b), inf, inf),
+            cat(a, a_of_aff, a_of_aff, inf, head(a), inf),
+            cat(aff, head(aff), neg(head(aff)), head(aff), inf, inf))
+
+
+@pytest.mark.parametrize("group", _CURVE_GROUPS)
+def test_curve_kernel_matches_plain(dev, group):
+    """Kernel 10's addition, mixed addition and doubling at 2^14 lanes, and
+    an operand broadcast over them, bitwise against the plain group law on
+    the card: random pairs, P + P, P + (-P), infinity; one launch an op."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    ops = M.make_ops(_curve(group))
+    plain = ops.plain()
+    a, b, am, bm = _curve_lanes(ops, 1 << 14, dev)
+    g = ops.from_host([ops.curve.generator()], dev)
+    native.launches.update({k: 0 for k in native.launches})
+    cases = [(ops.add(a, b), plain.add(a, b)), (ops.add_mixed(am, bm), plain.add_mixed(am, bm)),
+             (ops.double(a), plain.double(a)), (ops.add_mixed(a, g), plain.add_mixed(a, g)),
+             (ops.add(g, a), plain.add(g, a))]
+    torch.cuda.synchronize()
+    assert native.launches[ops.counter("curve_op")] == len(cases)
+    assert sum(native.launches.values()) == len(cases)
+    for got, want in cases:
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _skewed_ids(n, c, seed, dev):
+    """Four windows of bucket ids: uniform, all equal, mostly 0 and 1 (a
+    circom-style witness), half zeros."""
+    rng = np.random.default_rng(seed)
+    nb = 1 << c
+    rows = [rng.integers(0, nb, n), np.full(n, rng.integers(1, nb)),
+            rng.choice([0, 1, 2, nb - 1], n, p=[0.45, 0.45, 0.05, 0.05]),
+            np.where(rng.random(n) < 0.5, 0, rng.integers(1, nb, n))]
+    return torch.from_numpy(np.stack(rows).astype(np.int64)).to(dev)
+
+
+@pytest.mark.parametrize("group", _CURVE_GROUPS)
+def test_msm_bucket_kernel_matches_plain(dev, group):
+    """Kernel 11's accumulate and reduce over 2^11 points and 2^8 buckets,
+    at skewed ids and points at infinity, bitwise against the plain bucket
+    phase on the card; one launch a level."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    ops = M.make_ops(_curve(group))
+    n, c = 1 << 11, 8
+    pts = _random_triples(ops, n, 5, dev, affine=True)
+    pts = ops.select(torch.arange(n, device=dev) % 97 == 0, ops.neutral((n,), dev), pts)
+    ids = _skewed_ids(n, c, 6, dev)
+    native.launches.update({k: 0 for k in native.launches})
+    got = M.bucket_sums(ops, ids, pts, 1 << c)
+    torch.cuda.synchronize()
+    assert native.launches[ops.counter("msm_bucket")] == 4  # 2^11 -> 256 -> 32 -> 4 slots
+    want = M.bucket_sums_plain(ops, ids, pts, 1 << c)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    native.launches.update({k: 0 for k in native.launches})
+    got_w = M.weighted_bucket_sums(ops, got)
+    torch.cuda.synchronize()
+    assert native.launches[ops.counter("msm_bucket")] == 2  # 256 -> 16 -> 1 chunks
+    assert all(torch.equal(x, y) for x, y in zip(got_w, M.weighted_bucket_sums_plain(ops, want)))
+
+
+def test_pippenger_launches_kernel_11_and_no_group_op(dev):
+    """A Pippenger MSM of 2^12 points on the card: its bucket phase is
+    kernel 11's levels alone (no kernel 10 launch, kernel 8 only in the
+    windows' affine conversion); the value is the double-and-add's."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+    from lambda_elliptic_curves_tpu_torch.curves.zoo import BN254Curve
+
+    ops = M.make_ops(BN254Curve)
+    rng = np.random.default_rng(8)
+    r = BN254Curve.order
+    ks = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(1 << 12)]
+    pts = ops.affine_points(M.fixed_base_multiples(
+        BN254Curve, M.scalars_to_digits(BN254Curve, ks, dev), BN254Curve.generator(), ops))
+    scalars = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(1 << 12)]
+    digits = M.scalars_to_digits(BN254Curve, scalars, dev)
+    native.launches.update({k: 0 for k in native.launches})
+    value = M.msm_pippenger(BN254Curve, digits, pts, ops=ops)
+    assert native.launches["curve_op"] == 0
+    assert 2 <= native.launches["msm_bucket"] <= 12
+    assert native.launches["dense_field"] <= 12
+    assert value == ops.to_host(M.msm_double_and_add(BN254Curve, digits, pts, ops))[0]
 
 
 @pytest.mark.parametrize("case", ["plonk4", "plonk32"])
@@ -824,6 +958,9 @@ def test_groth16_card_proof_equals_cpu_path(dev, monkeypatch):
         assert verify(vk, proof, witness[:2], cfg, device=device)
         if device == dev:
             assert native.launches["dense_ntt_bls12_377"] > 0
-            assert native.launches["dense_field_bls12_377"] > 1000  # the MSMs ran here
+            # the MSMs ran here: the comb's additions on kernel 10, Pippenger's
+            # bucket phase on kernel 11
+            assert native.launches["curve_op_bls12_377"] >= 32
+            assert native.launches["msm_bucket_bls12_377"] > 0
         out[str(device)] = (interop.proving_key_to_json(pk), interop.proof_to_json(proof))
     assert out[str(dev)] == out["cpu"]

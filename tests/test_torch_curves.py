@@ -138,6 +138,35 @@ def test_msm_device_routes_equal_jax_device_msm(msm_case, method):
     assert _affine(got) == _json_point(data[method])
 
 
+def _skewed_scalars(case, n, order, c, seed):
+    """Scalars whose window ids pile up: all equal; mostly 0 and 1 (a
+    circom-style witness); all below 2^c (every id of the other windows 0)."""
+    rng = np.random.default_rng(seed)
+    rand = lambda: int.from_bytes(rng.bytes(32), "little") % order  # noqa: E731
+    if case == "all_equal":
+        return [rand()] * n
+    if case == "mostly_0_and_1":
+        return [0 if u < 0.45 else 1 if u < 0.9 else rand() for u in rng.random(n)]
+    return [int(v) for v in rng.integers(0, 1 << c, n)]
+
+
+@pytest.mark.parametrize("case, log_n", [("all_equal", 6), ("mostly_0_and_1", 7),
+                                         ("below_2^c", 6)])
+def test_pippenger_skewed_scalars_equal_host_msm(case, log_n):
+    """The chunked bucket phase (kernel 11's plain version) where the ids
+    are skewed, on the device route (2^6-2^7 points, 3-bit windows: the
+    plain version's time is its levels' steps), against msm_naive_host."""
+    n = 1 << log_n
+    g = BN254Curve.generator()
+    points = [g.operate_with_self(k) for k in _scalars(11, n)]
+    scalars = _skewed_scalars(case, n, R_ORDER, 3, 12)
+    ops = JacobianOps(BN254Curve)
+    digits = M.scalars_to_digits(BN254Curve, scalars, "cpu")
+    got = M.msm_pippenger(BN254Curve, digits, ops.from_host(points, "cpu"), window_size=3,
+                          ops=ops)
+    assert got == M.msm_naive_host(scalars, points)
+
+
 def test_msm_windows_and_digits():
     sc = _scalars(5, 10) + [0, R_ORDER - 1]
     d = M.scalars_to_digits(BN254Curve, sc, "cpu")
