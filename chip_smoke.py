@@ -52,7 +52,9 @@ Phases (one result line each, with its seconds):
      P + P, P + (-P) and infinity lanes), and kernel 11
      (``csrc/msm_bucket.cu``: Pippenger's bucket phase) against its plain
      version over skewed ids (uniform, one bucket, mostly 0 and 1, half
-     zeros) of 2^10 points for each group; each timed with its bound
+     zeros) of 2^12 points, c = 12 (two levels each of the accumulate and
+     the reduce), for each group, with its occupancy at the blocks it
+     launches; each timed with its bound
   3. Fibonacci 2^10 rows, ProofOptions(4, 32, 3, 0): serialized proof
      byte-equal to the JAX package's checked-in proof; verify accepts it and
      rejects it with fri_last_value + 1; 3b every example AIR of
@@ -91,8 +93,13 @@ Phases (one result line each, with its seconds):
      points (from the setup's comb on the card), Pippenger against the
      device double-and-add (timed), and both against the host MSM at 2^8;
      5f and 5h also hold kernel 11 against its plain version over the
-     MSM's own ids, report each MSM's launches by kernel and trace one more
-     Pippenger MSM (fewer than 100 kernels of any kind);
+     MSM's own ids (its launches exactly its plan's: each launch's grid and
+     longest chain of dependent group ops), report each MSM's launches by
+     kernel and trace one more Pippenger MSM (fewer than 100 kernels of any
+     kind), and run 2^16-point Pippenger MSMs over BN254 G1 (5f) and
+     BLS12-377 G2 (5h) with skewed scalars (all equal; 90% 0 or 1, the
+     rest uniform), each equal to the device double-and-add, with the
+     bucket phase's time and share at their ids;
      5i Groth16 over BLS12-377 on a chain of 2^16 constraints: setup, a
      first and a warm prove (launch counts reset just before it) with each
      stage's time, verify, and a wrong public input refused
@@ -1670,10 +1677,77 @@ def _bucket_phase(ops, ids, pts, nbuckets: int, plain: bool = False):
     return M.weighted_bucket_sums(ops, M.bucket_sums(ops, ids, pts, nbuckets))
 
 
-def _hold_bucket_phase(state, group, ops, ids, pts, nbuckets: int, what: str) -> dict:
-    """Kernel 11 against its plain version on the card over (W, S) ids:
-    the bucket table and the weighted sums bitwise, the launches, the time
-    of both and the bound of the work the ids need."""
+def _bucket_launches(ops, W: int, S: int, nbuckets: int) -> list:
+    """Kernel 11's launches for W windows of S points and nbuckets buckets
+    of ``ops``' group (``curves/msm.py``'s leaves and tiles, the
+    accumulate's first leaves as ``_leaf_length`` sizes them): each
+    launch's grid (blocks of threads) and the dependent group ops on its
+    longest thread's path, from its inputs to its outputs: a leaf's walk
+    (the accumulate's T - 1 additions; the reduce's 2 m additions and
+    log2 m doublings, the scaling of its R), then a step of the tree each
+    (the accumulate's one addition; the reduce's two on the V thread, an
+    addition and a doubling on the R~ thread)."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    out, seq, level = [], S, 0
+    chunk = M._leaf_length(M.BUCKET_CHUNK, S, W, M.BUCKET_TILE, ops)
+    while True:
+        P = M._tile(-(-seq // chunk), M.BUCKET_TILE)
+        K = -(-seq // (P * chunk))
+        steps = P.bit_length() - 1
+        out.append({"launch": f"accumulate level {level}", "blocks": W * K, "threads": P,
+                    "inputs_a_block": P * chunk, "chain": chunk - 1 + steps,
+                    "chain_ops": f"{chunk - 1} {'mixed ' if level == 0 else ''}additions + "
+                                 f"{steps} combines"})
+        if K == 1:
+            break
+        seq, chunk, level = 2 * K, M.MERGE_CHUNK, level + 1
+    N, r, level, m = nbuckets, None, 0, M.REDUCE_CHUNK
+    while True:
+        _, P, K = M._reduce_shape(N, m, M.BUCKET_TILE, r is None)
+        steps = P.bit_length() - 1
+        walk = (2 * m + m.bit_length() - 1) if r is None else 0
+        out.append({"launch": f"reduce level {level}", "blocks": W * K, "threads": P,
+                    "inputs_a_block": P * (m if r is None else 1), "chain": walk + 2 * steps,
+                    "chain_ops": (f"{2 * m} additions + {m.bit_length() - 1} doublings + "
+                                  if r is None else "") + f"{steps} x 2 additions"})
+        if K == 1:
+            return out
+        N, r, level = K, True, level + 1
+
+
+def _bucket_occupancy(group: str) -> dict:
+    """Kernel 11's instances of ``group`` at blocks of BUCKET_TILE threads:
+    the blocks and warps an SM holds at once (the CUDA occupancy
+    calculator: registers, dynamic shared memory, the launch bound), a
+    block's shared bytes, and the card's blocks at once beside the
+    ``WAVE_BLOCKS`` that size the accumulate's first leaves."""
+    import ctypes
+
+    import torch
+    from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    gid = CURVE_GROUPS.index(group)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"wave_blocks": M.WAVE_BLOCKS[gid]}
+    for kind, name in enumerate(("accumulate, mixed", "accumulate", "reduce")):
+        res = (ctypes.c_long * 2)()
+        err = native.cuda_lib().lw_msm_bucket_occupancy(gid, kind, M.BUCKET_TILE, res)
+        check(err == 0, f"{group} {name}: the occupancy query failed ({err})")
+        out[name] = {"threads": M.BUCKET_TILE, "blocks_per_sm": res[0],
+                     "warps_per_sm": res[0] * M.BUCKET_TILE // 32, "shared_bytes": res[1],
+                     "card_blocks": res[0] * sms}
+    return out
+
+
+def _time_bucket_phase(state, group, ops, ids, pts, nbuckets: int) -> dict:
+    """Kernel 11's device ms over (W, S) ids: the whole bucket phase (the
+    stable sort and the table's fill included), the accumulate and the
+    reduce, its launches, and the bound of the work that the ids need as
+    the earlier chunked design's levels counted it (``_bucket_work(.., 16,
+    16)``, a fixed count, so that a design doing more additions looks no
+    closer to its bound)."""
     import torch
     from lambda_elliptic_curves_tpu_torch import native
     from lambda_elliptic_curves_tpu_torch.curves import msm as M
@@ -1684,9 +1758,38 @@ def _hold_bucket_phase(state, group, ops, ids, pts, nbuckets: int, what: str) ->
     table = M.bucket_sums(ops, ids, pts, nbuckets)
     torch.cuda.synchronize()
     acc_launches = native.launches[counter]
-    value = M.weighted_bucket_sums(ops, table)
+    M.weighted_bucket_sums(ops, table)
     torch.cuda.synchronize()
     launches = native.launches[counter]
+    sorted_ids = torch.sort(ids, dim=-1, stable=True)[0].cpu().numpy()
+    nonempty = (~ops.f.is_zero(table[2])).cpu().numpy()
+    work = _bucket_work(sorted_ids, nonempty, 16, 16)
+    W, S = ids.shape
+    pbytes = 3 * ops.f.num_limbs * 4
+    b_ms, b_by = _curve_bound(state, group, work, 16.0 * W * S + pbytes * (S + W))
+    ms = cuda_ms(lambda: _bucket_phase(ops, ids, pts, nbuckets), 3)
+    acc_ms = cuda_ms(lambda: M.bucket_sums(ops, ids, pts, nbuckets), 3)
+    reduce_ms = cuda_ms(lambda: M.weighted_bucket_sums(ops, table), 3)
+    plan = _bucket_launches(ops, W, S, nbuckets)
+    check(launches == len(plan), f"{group}: kernel 11 launched {launches} times, not the "
+          f"{len(plan)} of its plan")
+    return {"ms": ms, "accumulate_ms": acc_ms, "reduce_ms": reduce_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "share": b_ms / ms, "launches": launches,
+            "accumulate_launches": acc_launches, "work": work, "plan": plan,
+            "chain": sum(x["chain"] for x in plan)}
+
+
+def _hold_bucket_phase(state, group, ops, ids, pts, nbuckets: int, what: str) -> dict:
+    """Kernel 11 against its plain version on the card over (W, S) ids:
+    the bucket table and the weighted sums bitwise, then its times,
+    launches and bound (``_time_bucket_phase``) and the plain version's
+    time."""
+    import torch
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    table = M.bucket_sums(ops, ids, pts, nbuckets)
+    value = M.weighted_bucket_sums(ops, table)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     want_table = M.bucket_sums_plain(ops, ids, pts, nbuckets)
     want = M.weighted_bucket_sums_plain(ops, want_table)
@@ -1694,23 +1797,17 @@ def _hold_bucket_phase(state, group, ops, ids, pts, nbuckets: int, what: str) ->
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(max_abs_err(x, y) for x, y in zip(table + value, want_table + want))
     check(err == 0, f"{group}: kernel 11 != its plain version over {what}")
-    sorted_ids = torch.sort(ids, dim=-1, stable=True)[0].cpu().numpy()
-    nonempty = (~ops.f.is_zero(table[2])).cpu().numpy()
-    work = _bucket_work(sorted_ids, nonempty, M.BUCKET_CHUNK, M.REDUCE_CHUNK)
-    W, S = ids.shape
-    pbytes = 3 * ops.f.num_limbs * 4
-    b_ms, b_by = _curve_bound(state, group, work, 16.0 * W * S + pbytes * (S + W))
-    ms = cuda_ms(lambda: _bucket_phase(ops, ids, pts, nbuckets), 3)
-    del table, value, want_table, want
-    return {"what": what, "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
-            "plain_ms": plain_ms, "launches": launches, "accumulate_launches": acc_launches,
-            "work": work, "max_abs_err": err}
+    del value, want_table, want
+    timed = _time_bucket_phase(state, group, ops, ids, pts, nbuckets)
+    del table
+    return {"what": what, **timed, "plain_ms": plain_ms, "max_abs_err": err}
 
 
 def phase_curve_kernels(state):
     """Kernel 10 (every op of every group at the MSMs' scan width, and an
-    operand broadcast) and kernel 11 (over skewed ids of 2^10 points, 5-bit
-    windows) against their plain versions on the card."""
+    operand broadcast) and kernel 11 (over skewed ids of 2^12 points,
+    12-bit windows; its occupancy) against their plain versions on the
+    card."""
     import torch
     from lambda_elliptic_curves_tpu_torch import native
     from lambda_elliptic_curves_tpu_torch.tools._timing import cuda_ms
@@ -1759,15 +1856,17 @@ def phase_curve_kernels(state):
                                       "share": b_ms / ms, "plain_ms": plain_ms}
             del a, b, am, bm, cases
             torch.cuda.empty_cache()
-            # kernel 11 over skewed ids at 2^10 points, 5-bit windows (the
-            # plain version's time grows with its levels' steps; phases 5f
-            # and 5h hold the kernel over the MSMs' own ids at 2^16)
-            ids = _skewed_ids(1 << 10, 5, gen)
-            pts = (_curve_values(fq, g2, 1 << 10, gen), _curve_values(fq, g2, 1 << 10, gen),
-                   ops.f.ones((1 << 10,), dev))
-            buckets[group] = _hold_bucket_phase(state, group, ops, ids, pts, 1 << 5,
+            # kernel 11 over skewed ids at 2^12 points, 12-bit windows: two
+            # accumulate and two reduce levels (the plain version's time
+            # grows with its steps; phases 5f and 5h hold the kernel over the
+            # MSMs' own ids at 2^16)
+            ids = _skewed_ids(1 << 12, 12, gen)
+            pts = (_curve_values(fq, g2, 1 << 12, gen), _curve_values(fq, g2, 1 << 12, gen),
+                   ops.f.ones((1 << 12,), dev))
+            buckets[group] = _hold_bucket_phase(state, group, ops, ids, pts, 1 << 12,
                                                 "skewed ids (uniform, one bucket, mostly 0 and "
-                                                "1, half zeros) of 2^10 points, c = 5")
+                                                "1, half zeros) of 2^12 points, c = 12")
+            buckets[group]["occupancy"] = _bucket_occupancy(group)
             del ids, pts
             torch.cuda.empty_cache()
         for name, group in (("curve_op", "bn254_g1"), ("curve_op_bls12_377", "bls12_377_g2")):
@@ -1855,6 +1954,7 @@ def _msm_kernels(state, group, ops, digits, pts_dev, at: str):
         state["kernels"][name].update(
             max_abs_err=bucket["max_abs_err"], ms=bucket["ms"], plain_ms=bucket["plain_ms"],
             bound_ms=bucket["bound_ms"], bound_by=bucket["bound_by"], library_ms=None,
+            share=bucket["share"], occupancy=state["bucket_skewed"][group]["occupancy"],
             shape=f"{group} bucket phase ({bucket['launches']} launches: accumulate and "
                   f"reduce levels; the stable sort and the table's fill included) over "
                   + bucket["what"])
@@ -1865,6 +1965,36 @@ def _msm_kernels(state, group, ops, digits, pts_dev, at: str):
     check(traced["kernels"] < MSM_KERNELS_MAX, f"{group}: a Pippenger MSM of {B} points ran "
           f"{traced['kernels']} kernels, not fewer than {MSM_KERNELS_MAX}")
     return bucket, {**traced, "kernels_by_trace": [t["kernels"] for t in traces]}
+
+
+def _skewed_msms(state, group, curve, ops, pts_dev, rng) -> dict:
+    """Pippenger MSMs of the phase's points with skewed scalars (every
+    scalar equal; 90% 0 or 1 and the rest uniform), each equal to the
+    device double-and-add (an independent algorithm); the MSM's host-clock
+    ms and its bucket phase's device ms, launches and share at their ids."""
+    import torch
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    n, r = pts_dev[0].shape[-1], curve.order
+    draw = lambda: int.from_bytes(rng.bytes(32), "little") % r  # noqa: E731
+    one = draw()
+    mixes = {"all equal": [one] * n,
+             "90% 0 or 1": [0 if u < 0.45 else 1 if u < 0.9 else draw() for u in rng.random(n)]}
+    c = min(M.optimum_window_size(n), 15)
+    out = {}
+    for name, scalars in mixes.items():
+        digits = M.scalars_to_digits(curve, scalars, pts_dev[0].device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = M.msm_pippenger(curve, digits, pts_dev, ops=ops)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(value == ops.to_host(M.msm_double_and_add(curve, digits, pts_dev, ops))[0],
+              f"{group}: Pippenger != double-and-add at {n} points, scalars {name}")
+        ids = M.window_ids(digits, c, -(-M._scalar_bits(curve) // c))
+        out[name] = {"msm_ms": ms, "bucket_phase": _time_bucket_phase(
+            state, group, ops, ids, pts_dev, 1 << c)}
+    return out
 
 
 def phase_bn254_msm(state):
@@ -1905,6 +2035,8 @@ def phase_bn254_msm(state):
               "Pippenger != double-and-add at 2^16 points")
         bucket, traced = _msm_kernels(state, "bn254_g1", ops, digits, pts_dev, "5f")
         out["pippenger"]["bucket_phase"], out["pippenger"]["traced"] = bucket, traced
+        out["skewed"] = _skewed_msms(state, "bn254_g1", BN254Curve, ops, pts_dev,
+                                     np.random.default_rng(18))
         # 2^10 points against the host MSM
         host_pts = ops.to_host(tuple(c[:, :1 << 10] for c in pts_dev))
         want = M.msm_naive_host(scalars[:1 << 10], host_pts)
@@ -2107,6 +2239,9 @@ def phase_bls12_377_msm(state):
             bucket, traced = _msm_kernels(state, f"bls12_377_{group}", ops, digits, pts_dev,
                                           "5h")
             res["pippenger"]["bucket_phase"], res["pippenger"]["traced"] = bucket, traced
+            if group == "g2":
+                res["skewed"] = _skewed_msms(state, "bls12_377_g2", curve, ops, pts_dev,
+                                             np.random.default_rng(19))
             # 2^8 points against the host MSM, and the comb's points against
             # host scalar multiplications
             host_pts = ops.to_host(tuple(c[:, :1 << 8] for c in pts_dev))

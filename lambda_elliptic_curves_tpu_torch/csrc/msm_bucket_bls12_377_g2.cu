@@ -13,3 +13,7 @@ int lw_bucket_accumulate_bls12_377_g2(const LwBucketAcc& a, bool mixed, cudaStre
 int lw_bucket_reduce_bls12_377_g2(const LwBucketReduce& a, cudaStream_t s) {
     return lw_bucket_reduce_run<LwBls12377G2>(a, s);
 }
+
+int lw_bucket_occupancy_bls12_377_g2(int kind, int threads, long* out) {
+    return lw_bucket_occupancy_run<LwBls12377G2>(kind, threads, out);
+}

@@ -22,3 +22,11 @@ int lw_bucket_reduce_g2(int group, const LwBucketReduce& a, cudaStream_t s) {
         default: return (int)cudaErrorInvalidValue;
     }
 }
+
+int lw_bucket_occupancy_g2(int group, int kind, int threads, long* out) {
+    switch (group) {
+        case LW_CURVE_BN254_G2: return lw_bucket_occupancy_run<LwBn254G2>(kind, threads, out);
+        case LW_CURVE_BLS12_377_G2: return lw_bucket_occupancy_bls12_377_g2(kind, threads, out);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}

@@ -16,9 +16,13 @@ for G2; every group op a launch of kernel 10 on the card):
 * ``msm_pippenger``: the bucket method with its windows vectorised: the
   (windows, points) matrix of bucket ids is sorted stably row by row, and
   the bucket phase (:func:`bucket_sums`, :func:`weighted_bucket_sums`) runs
-  in chunks, one thread a chunk on the card (kernel 11,
-  ``csrc/msm_bucket.cuh``): about one mixed addition a point and two
-  additions a bucket, whatever the skew of the scalars (the JAX package's
+  in tiles, on the card a block a tile (kernel 11, ``csrc/msm_bucket.cuh``):
+  a thread walks a leaf of 16 buckets or of 16 or more sorted positions
+  (enough that the first level takes one wave of the card), and the block
+  merges its tile's leaves by a tree of log2 128 steps in shared memory;
+  about one mixed addition a point and two additions a bucket,
+  with chains of dependent additions that stay short whatever the skew
+  of the scalars (the JAX package's
   ``bucket_accumulate_chunked`` :107 scans rows of columns, then runs a
   segmented scan over the columns).  The window sums go affine on the host
   and combine there, most significant first (c doublings and an add
@@ -56,11 +60,26 @@ HOST_MSM_MAX = 64
 #: scalars are held as 16-bit digits (bit containers, no field arithmetic)
 DIGIT_BITS = 16
 
-#: positions of a chunk of the bucket phase's accumulate, and buckets of a
-#: chunk of its reduce (a power of two): kernel 11 and its plain version
-#: take the same, so their results are bitwise equal
+#: the bucket phase's leaves: the least positions a leaf walks at the
+#: accumulate's first level (mixed additions from the affine points), the
+#: slots a leaf takes at its later levels, and the buckets a leaf walks at
+#: the reduce's first level (a power of two); and its tiles: leaves a block of
+#: kernel 11 merges by a tree, in both phases (a power of two, at most
+#: ``TILE_MAX``, ``csrc/msm_bucket.cuh``'s kBucketTileMax).  Kernel 11 and
+#: its plain version take the same, so their results are bitwise equal
 BUCKET_CHUNK = 16
+MERGE_CHUNK = 2
 REDUCE_CHUNK = 16
+BUCKET_TILE = 128
+TILE_MAX = 128
+
+#: blocks of kernel 11 (128 threads) that an H100's 132 SMs hold at once,
+#: by curve group (curve.cuh's LW_CURVE_*): 3 an SM for BN254 G1 (138 and
+#: 168 registers a thread), 2 for the others (182-255), as the occupancy
+#: calculator gives them (``chip_smoke.py`` phase 2m).  The accumulate's
+#: first leaves grow until the windows' tiles take one such wave: one wave
+#: of longer walks ends sooner than two or three of short ones
+WAVE_BLOCKS = {0: 3 * 132, 1: 2 * 132, 2: 2 * 132, 3: 2 * 132}
 
 #: bits of a window of ``fixed_base_multiples``: a table of 2^c points a
 #: window, built on the host; c = 8 takes 32 windows over a 253-bit order
@@ -148,12 +167,48 @@ def _neutral_planes(ops, n: int, dev):
     return tuple(c.contiguous() for c in ops.neutral((n,), dev))
 
 
-def _accumulate_level_native(ops, call, ids, order, pts, chunk, table, nbuckets, mixed):
-    """One accumulate level of ``csrc/msm_bucket.cuh``: its 22 arguments
+def _tile(leaves: int, tile: int) -> int:
+    """Leaves of a level's tiles: ``tile``, or the least power of two that
+    holds the level's ``leaves`` when that is fewer."""
+    return min(tile, 1 << max(0, leaves - 1).bit_length())
+
+
+def _leaf_length(least: int, per_window: int, W: int, tile: int, ops) -> int:
+    """Positions a first-level accumulate leaf walks over ``per_window`` of
+    each of W windows: ``least``, or more when the windows' tiles of
+    ``tile`` leaves would fill more than one wave of the card's blocks
+    (``WAVE_BLOCKS`` of the group)."""
+    tiles = WAVE_BLOCKS.get(getattr(ops.curve, "kernel_group", -1), 0) // W
+    return max(least, -(-per_window // (tile * tiles))) if tiles else least
+
+
+def _check_tile(tile: int) -> None:
+    if tile < 2 or tile & (tile - 1) or tile > TILE_MAX:
+        raise ValueError(f"a tile is a power of two from 2 to {TILE_MAX} leaves")
+
+
+def _gather(pt, idx):
+    return tuple(c[:, idx] for c in pt)
+
+
+def _add_where(add, mask, p1, p2):
+    """``add(p1, p2)`` on the lanes of ``mask`` (the others keep p1), the
+    addition run on those lanes alone."""
+    if not bool(mask.any()):
+        return p1
+    out = tuple(c.clone() for c in p1)
+    for o, v in zip(out, add(tuple(c[:, mask] for c in p1), tuple(c[:, mask] for c in p2))):
+        o[:, mask] = v
+    return out
+
+
+def _accumulate_level_native(ops, call, ids, order, pts, chunk, tile, table, nbuckets, mixed):
+    """One accumulate level of ``csrc/msm_bucket.cuh``: its 23 arguments
     handed to ``call(args, mixed)`` (on the card one launch of kernel 11);
     the next level's slots, or None at the last level."""
     W, S = ids.shape
-    K = -(-S // chunk)
+    P = _tile(-(-S // chunk), tile)
+    K = -(-S // (P * chunk))
     L, dev = ops.f.num_limbs, ids.device
     ids = ids.contiguous()
     order = None if order is None else order.contiguous()
@@ -164,93 +219,140 @@ def _accumulate_level_native(ops, call, ids, order, pts, chunk, table, nbuckets,
         slots = (torch.empty((W, 2 * K), dtype=torch.int64, device=dev),
                  tuple(torch.empty((L, W * 2 * K), dtype=torch.int32, device=dev)
                        for _ in range(3)))
-    desc = ([W, S, chunk, nbuckets, ids.data_ptr(), 0 if order is None else order.data_ptr()]
+    desc = ([W, S, chunk, nbuckets, P, ids.data_ptr(),
+             0 if order is None else order.data_ptr()]
             + pts_arg + [t.data_ptr() for t in table]
             + ([0] * 4 if slots is None else [slots[0].data_ptr()]
                + [t.data_ptr() for t in slots[1]]))
-    call((ctypes.c_long * 22)(*desc), mixed)
+    call((ctypes.c_long * 23)(*desc), mixed)
     return slots
 
 
-def _accumulate_level_plain(ops, ids, order, pts, chunk, table, nbuckets, mixed):
-    """Kernel 11's accumulate level in PyTorch: the chunks' walks side by
-    side, one position of every chunk a step."""
+def _accumulate_level_plain(ops, ids, order, pts, chunk, tile, table, nbuckets, mixed):
+    """Kernel 11's accumulate level in PyTorch, every tile side by side:
+    the leaves' walks (one position of every leaf a step), the tree's steps
+    (every combine of a step at once, on the tiles' point stores), then the
+    roots: the same additions, in the same order of operands, as
+    ``csrc/msm_bucket.cuh``."""
     W, S = ids.shape
-    K = -(-S // chunk)
-    dev = ids.device
-    pad = K * chunk - S
-    idv = torch.nn.functional.pad(ids, (0, pad)).reshape(W, K, chunk)
+    P = _tile(-(-S // chunk), tile)
+    K = -(-S // (P * chunk))
+    n, dev = K * P, ids.device  # leaves a window
+    pad = n * chunk - S
+    idv = torch.nn.functional.pad(ids, (0, pad)).reshape(W, n, chunk)
     elem = (torch.arange(W * S, device=dev).reshape(W, S) if order is None else order)
-    elemv = torch.nn.functional.pad(elem, (0, pad)).reshape(W, K, chunk)
-    last_level = K == 1
-    rows = (torch.arange(W, device=dev)[:, None] * nbuckets).expand(W, K)
-    acc = ops.neutral((W, K), dev)
-    acc_id = torch.zeros((W, K), dtype=torch.int64, device=dev)
-    have = torch.zeros((W, K), dtype=torch.bool, device=dev)
-    first_open = torch.ones((W, K), dtype=torch.bool, device=dev)
-    slot0, slot0_id = ops.neutral((W, K), dev), torch.zeros_like(acc_id)
+    elemv = torch.nn.functional.pad(elem, (0, pad)).reshape(W, n, chunk)
     add = ops.add_mixed if mixed else ops.add
+    zero = torch.zeros((W, n), dtype=torch.int64, device=dev)
 
-    def to_table(mask, pt, pt_id):
+    def to_table(mask, pt, pt_id, rows):
         cols = (rows + pt_id)[mask]
         for t, c in zip(table, pt):
             t[:, cols] = c[:, mask]
 
+    # the walks: the first run's sum, and the open run's
+    rows = (torch.arange(W, device=dev)[:, None] * nbuckets).expand(W, n)
+    first, acc = ops.neutral((W, n), dev), ops.neutral((W, n), dev)
+    first_id, acc_id = zero, zero
     for step in range(chunk):
         cur = idv[:, :, step]
         valid = cur != 0
         q = tuple(c[:, elemv[:, :, step]] for c in pts)
-        same = valid & have & (cur == acc_id)
+        same = valid & (cur == acc_id)
         new = valid & ~same
-        close = new & have
-        to_slot = close & first_open if not last_level else torch.zeros_like(close)
-        slot0 = ops.select(to_slot, acc, slot0)
-        slot0_id = torch.where(to_slot, acc_id, slot0_id)
-        to_table(close & ~to_slot, acc, acc_id)
-        first_open = first_open & ~close
-        if bool(same.any()):
-            acc = ops.select(same, add(acc, q), acc)
-        acc = ops.select(new, q, acc)
+        close = new & (acc_id != 0)
+        to_first = close & (first_id == 0)
+        first = ops.select(to_first, acc, first)
+        first_id = torch.where(to_first, acc_id, first_id)
+        to_table(close & ~to_first, acc, acc_id, rows)
+        acc = ops.select(new, q, _add_where(add, same, acc, q))
         acc_id = torch.where(new, cur, acc_id)
-        have = have | valid
-    if last_level:
-        to_table(have, acc, acc_id)
+    # the leaves as tree nodes: the tiles' stores of 2 P points, and by a
+    # node's first leaf its runs' ids and where their sums are
+    one = first_id == 0
+    store = tuple(torch.stack([a, b], dim=-1).reshape(a.shape[0], W * K * 2 * P)
+                  for a, b in zip(ops.select(one, acc, first), acc))
+    fid = torch.where(one, acc_id, first_id).reshape(W * K, P)
+    lid = acc_id.reshape(W * K, P)
+    pos = 2 * torch.arange(P, device=dev).expand(W * K, P)
+    pf, pl = pos, torch.where(one.reshape(W * K, P), pos, pos + 1)
+    base = torch.arange(W * K, device=dev)[:, None] * (2 * P)
+    rows = (torch.arange(W * K, device=dev)[:, None] // K) * nbuckets
+    d = 0
+    while (1 << d) < P:
+        lo = torch.arange(0, P, 2 << d, device=dev)
+        hi = lo + (1 << d)
+        lf, ll, lpf, lpl = fid[:, lo], lid[:, lo], pf[:, lo], pl[:, lo]
+        rf, rl, rpf, rpl = fid[:, hi], lid[:, hi], pf[:, hi], pl[:, hi]
+        both = (lf != 0) & (rf != 0)
+        take_r = (lf == 0) & (rf != 0)
+        merge = both & (ll == rf)
+        lone, rone = lpf == lpl, rpf == rpl
+        gl, gr = base + lpl, base + rpf
+        if bool(merge.any()):
+            at = gl[merge]
+            for c, v in zip(store, ops.add(_gather(store, at), _gather(store, gr[merge]))):
+                c[:, at] = v
+        keep_last = merge & rone  # the merged run is the node's last
+        rows_d = rows.expand_as(lf)
+        to_table(both & ~lone & ~keep_last, _gather(store, gl), ll, rows_d)
+        to_table(both & ~merge & ~rone, _gather(store, gr), rf, rows_d)
+        right_last = take_r | (both & ~keep_last)
+        fid[:, lo] = torch.where(take_r, rf, lf)
+        pf[:, lo] = torch.where(take_r, rpf, lpf)
+        lid[:, lo] = torch.where(right_last, rl, ll)
+        pl[:, lo] = torch.where(right_last, rpl, lpl)
+        d += 1
+    fid0, lid0 = fid[:, 0], lid[:, 0]
+    two = (fid0 != 0) & (pf[:, 0] != pl[:, 0])
+    f_pt = _gather(store, base[:, 0] + pf[:, 0])
+    l_pt = _gather(store, base[:, 0] + pl[:, 0])
+    if K == 1:
+        to_table(fid0 != 0, f_pt, fid0, rows[:, 0])
+        to_table(two, l_pt, lid0, rows[:, 0])
         return None
-    one_run, more = have & first_open, have & ~first_open
-    slot0 = ops.select(one_run, acc, slot0)
-    slot0_id = torch.where(one_run, acc_id, slot0_id)
-    slot1 = ops.select(more, acc, ops.neutral((W, K), dev))
-    slot1_id = torch.where(more, acc_id, torch.zeros_like(acc_id))
-    return (torch.stack([slot0_id, slot1_id], dim=-1).reshape(W, 2 * K),
+    none = ops.neutral((W * K,), dev)
+    slot0 = ops.select(fid0 != 0, f_pt, none)
+    slot1 = ops.select(two, l_pt, none)
+    slot1_id = torch.where(two, lid0, torch.zeros_like(lid0))
+    return (torch.stack([fid0, slot1_id], dim=-1).reshape(W, 2 * K),
             tuple(torch.stack([a, b], dim=-1).reshape(a.shape[0], W * 2 * K)
                   for a, b in zip(slot0, slot1)))
 
 
-def _bucket_sums(ops, level, ids, points_dev, nbuckets: int, chunk: int):
+def _bucket_sums(ops, level, ids, points_dev, nbuckets: int, chunk: int, tile: int = 0):
     """The accumulate levels, ``level`` (kernel 11's or the plain version's)
     run on each: level 0 over the sorted ids and the points read through
-    the sort's permutation (mixed additions), each next level over the
-    slots of the last (full additions), until one chunk holds a window."""
-    if chunk < 4:  # 2 ceil(S / chunk) slots: fewer than S positions only from 4 on
-        raise ValueError("the accumulate's chunk is 4 positions or more")
-    W = ids.shape[0]
+    the sort's permutation (leaves of ``chunk`` positions or more,
+    ``_leaf_length``; mixed additions), each next level over the slots of
+    the last (leaves of
+    ``MERGE_CHUNK`` slots, full additions), until one tile holds a
+    window (tiles of ``tile`` leaves, by default ``BUCKET_TILE``)."""
+    if chunk < 1:
+        raise ValueError("the accumulate's chunk is 1 position or more")
+    tile = tile or BUCKET_TILE
+    _check_tile(tile)
+    W, S = ids.shape
+    chunk = _leaf_length(chunk, S, W, tile, ops)
     dev = ids.device
     sorted_ids, order = torch.sort(ids, dim=-1, stable=True)
     table = _neutral_planes(ops, W * nbuckets, dev)
     seq_ids, seq_order, seq_pts, mixed = sorted_ids, order, points_dev, True
     while True:
-        slots = level(seq_ids, seq_order, seq_pts, chunk, table, nbuckets, mixed)
+        slots = level(seq_ids, seq_order, seq_pts, chunk, tile, table, nbuckets, mixed)
         if slots is None:
             return tuple(t.reshape(t.shape[0], W, nbuckets) for t in table)
         seq_ids, seq_order, seq_pts, mixed = slots[0], None, slots[1], False
+        chunk = MERGE_CHUNK
 
 
 def bucket_sums(ops, ids: torch.Tensor, points_dev, nbuckets: int, chunk: int = BUCKET_CHUNK):
     """(x, y, z) of shape (L, W, nbuckets): bucket j of window w is the sum
     of the points whose id in window w is j (bucket 0 neutral).  Each row
-    is sorted stably by id and walked in chunks of ``chunk`` positions
-    (``csrc/msm_bucket.cuh``): kernel 11 on the card, a launch a level; the
-    plain version on the CPU."""
+    is sorted stably by id and walked in leaves of ``chunk`` positions,
+    tiles of ``BUCKET_TILE`` leaves merged by a tree (``csrc/
+    msm_bucket.cuh``): kernel 11 on the card, a launch a level; the plain
+    version on the CPU."""
     group = ops.kernel_group(points_dev)
     if group is None:
         return _bucket_sums(ops, functools.partial(_accumulate_level_plain, ops), ids,
@@ -272,83 +374,108 @@ def bucket_sums_plain(ops, ids: torch.Tensor, points_dev, nbuckets: int,
                         nbuckets, chunk)
 
 
-def _reduce_level_native(ops, call, bk, carry, chunk, dbl):
+def _reduce_shape(N: int, chunk: int, tile: int, first: bool) -> tuple:
+    """(leaves a window, leaves a tile, tiles a window) of a reduce level
+    over N entries a window: at the first level a leaf is ``chunk``
+    buckets, later an entry."""
+    leaves = -(-N // chunk) if first else N
+    P = _tile(leaves, tile)
+    return leaves, P, -(-leaves // P)
+
+
+def _reduce_level_native(ops, call, v, r, chunk, tile):
     """One reduce level of ``csrc/msm_bucket.cuh``: its 28 arguments handed
-    to ``call(args)`` (on the card one launch of kernel 11); (R, C), three
-    (L, W, K) planes each."""
-    L, W, N = bk[0].shape
-    K = -(-N // chunk)
-    dev = bk[0].device
+    to ``call(args)`` (on the card one launch of kernel 11); the tiles' (V,
+    R~), three (L, W, K) planes each.  At the first level ``v`` holds the
+    buckets and ``r`` is None."""
+    L, W, N = v[0].shape
+    _, P, K = _reduce_shape(N, chunk, tile, r is None)
+    dev = v[0].device
     flat = lambda pt: tuple(c.reshape(L, W * N) for c in pt)  # noqa: E731
-    bk_arg, keep = ops.points_arg(flat(bk), (W * N,), W * N, dev.type)
-    carry_arg = [0] * 9
-    if carry is not None:
-        carry_arg, keep_carry = ops.points_arg(flat(carry), (W * N,), W * N, dev.type)
-    r = tuple(torch.empty((L, W * K), dtype=torch.int32, device=dev) for _ in range(3))
-    c = tuple(torch.empty((L, W * K), dtype=torch.int32, device=dev) for _ in range(3))
-    desc = ([W, N, chunk, dbl] + bk_arg + carry_arg + [t.data_ptr() for t in r]
-            + [t.data_ptr() for t in c])
+    v_arg, keep = ops.points_arg(flat(v), (W * N,), W * N, dev.type)
+    r_arg = [0] * 9
+    if r is not None:
+        r_arg, keep_r = ops.points_arg(flat(r), (W * N,), W * N, dev.type)
+    vo = tuple(torch.empty((L, W * K), dtype=torch.int32, device=dev) for _ in range(3))
+    ro = tuple(torch.empty((L, W * K), dtype=torch.int32, device=dev) for _ in range(3))
+    desc = ([W, N, chunk if r is None else 0, P] + v_arg + r_arg
+            + [t.data_ptr() for t in vo] + [t.data_ptr() for t in ro])
     call((ctypes.c_long * 28)(*desc))
-    return tuple(t.reshape(L, W, K) for t in r), tuple(t.reshape(L, W, K) for t in c)
+    return tuple(t.reshape(L, W, K) for t in vo), tuple(t.reshape(L, W, K) for t in ro)
 
 
-def _reduce_level_plain(ops, bk, carry, chunk, dbl):
-    """Kernel 11's reduce level in PyTorch, the chunks side by side: A_i =
-    B_(i+1) walked down a chunk with a running sum and the sum of the
-    running sums; the carried C's summed up; C = that sum + the sum of
-    running sums doubled ``dbl`` times.  A step in which no chunk adds
-    anything but the neutral point (the complete addition returns the other
-    operand exactly) is left out."""
-    L, W, N = bk[0].shape
-    K = -(-N // chunk)
-    dev = bk[0].device
+def _reduce_level_plain(ops, v, r, chunk, tile):
+    """Kernel 11's reduce level in PyTorch, every tile side by side.  The
+    leaves: at the first level A_i = B_(i+1) walked down a leaf's ``chunk``
+    entries with a running sum R and the sum of the running sums V (a step
+    in which every leaf adds only neutral points, which the complete
+    addition returns exactly, is left out), then R doubled log2(chunk)
+    times; later the last level's (V, R~).  Then the tree: V_l = V_l + (V_r
+    + R~_r) and R~_l = 2 (R~_l + R~_r) at every step."""
+    L, W, N = v[0].shape
+    leaves, P, K = _reduce_shape(N, chunk, tile, r is None)
+    n, dev = K * P, v[0].device
 
-    def chunked(pt, start, count):
-        pad = K * chunk - count
-        fill = ops.neutral((W, pad), dev)
-        return tuple(torch.cat([c[..., start:], f], dim=-1).reshape(L, W, K, chunk)
+    def padded(pt, start, count, width):
+        fill = ops.neutral((W, n * width - count), dev)
+        return tuple(torch.cat([c[..., start:start + count], f], dim=-1)
                      for c, f in zip(pt, fill))
 
-    finite = lambda pt: ~ops.f.is_zero(pt[2])  # noqa: E731
-    A = chunked(bk, 1, N - 1)
-    run, acc = ops.neutral((W, K), dev), ops.neutral((W, K), dev)
-    for step in reversed(range(min(chunk, N - 1) if K == 1 else chunk)):
-        a = tuple(c[..., step] for c in A)
-        if not bool((finite(a) | finite(run)).any()):
-            continue  # run and a neutral everywhere: run, acc stay
-        run = ops.add(run, a)
-        acc = ops.add(acc, run)
-    if carry is not None:
-        C = chunked(carry, 0, N)
-        d = ops.neutral((W, K), dev)
-        for step in range(min(chunk, N) if K == 1 else chunk):
-            c_step = tuple(c[..., step] for c in C)
-            if bool(finite(c_step).any()):
-                d = ops.add(d, c_step)
-        for _ in range(dbl):
-            acc = ops.double(acc)
-        acc = ops.add(d, acc)
-    return run, acc
+    if r is None:
+        A = tuple(c.reshape(L, W, n, chunk) for c in padded(v, 1, N - 1, chunk))
+        finite = lambda pt: ~ops.f.is_zero(pt[2])  # noqa: E731
+        run, acc = ops.neutral((W, n), dev), ops.neutral((W, n), dev)
+        for step in reversed(range(chunk)):
+            a = tuple(c[..., step] for c in A)
+            if not bool((finite(a) | finite(run)).any()):
+                continue  # run and a neutral everywhere: run, acc stay
+            run = ops.add(run, a)
+            acc = ops.add(acc, run)
+        for _ in range(chunk.bit_length() - 1):
+            run = ops.double(run)
+        v, r = acc, run
+    else:
+        v, r = padded(v, 0, N, 1), padded(r, 0, N, 1)
+    v = tuple(c.reshape(L, W * K, P).clone() for c in v)
+    r = tuple(c.reshape(L, W * K, P).clone() for c in r)
+    d = 0
+    while (1 << d) < P:
+        lo = torch.arange(0, P, 2 << d, device=dev)
+        hi = lo + (1 << d)
+        at = lambda pt, i: tuple(c[..., i] for c in pt)  # noqa: E731
+        v_hi = ops.add(at(v, hi), at(r, hi))
+        v_lo = ops.add(at(v, lo), v_hi)
+        r_lo = ops.double(ops.add(at(r, lo), at(r, hi)))
+        for c, x, y in zip(v, v_lo, v_hi):
+            c[..., lo], c[..., hi] = x, y
+        for c, x in zip(r, r_lo):
+            c[..., lo] = x
+        d += 1
+    return (tuple(c[..., 0].reshape(L, W, K) for c in v),
+            tuple(c[..., 0].reshape(L, W, K) for c in r))
 
 
-def _weighted_bucket_sums(level, buckets, chunk: int):
+def _weighted_bucket_sums(level, buckets, chunk: int, tile: int = 0):
     """The reduce levels, ``level`` (kernel 11's or the plain version's) run
-    on each, until one chunk holds a window: its C is the window's sum."""
-    if chunk < 2 or chunk & (chunk - 1):
+    on each, the first over leaves of ``chunk`` buckets, until one tile (of
+    ``tile`` leaves, by default ``BUCKET_TILE``) holds a window: its V is
+    the window's sum."""
+    if chunk < 1 or chunk & (chunk - 1):
         raise ValueError("the reduce's chunk is a power of two")
-    bk, carry, depth = buckets, None, 0
+    tile = tile or BUCKET_TILE
+    _check_tile(tile)
+    v, r = buckets, None
     while True:
-        N = bk[0].shape[-1]
-        r, c = level(bk, carry, chunk, depth * (chunk.bit_length() - 1))
-        if N <= chunk:
-            return c
-        bk, carry, depth = r, c, depth + 1
+        v, r = level(v, r, chunk, tile)
+        if v[0].shape[-1] == 1:
+            return v
 
 
 def weighted_bucket_sums(ops, buckets, chunk: int = REDUCE_CHUNK):
     """sum_j j B_j along the last axis of (L, W, N) buckets: (L, W, 1), by
-    chunked running sums (``csrc/msm_bucket.cuh``): kernel 11 on the card,
-    a launch a level; the plain version on the CPU."""
+    leaves of ``chunk`` buckets' running sums and a tree over tiles of
+    ``BUCKET_TILE`` leaves (``csrc/msm_bucket.cuh``): kernel 11 on the
+    card, a launch a level; the plain version on the CPU."""
     group = ops.kernel_group(buckets)
     if group is None:
         return _weighted_bucket_sums(functools.partial(_reduce_level_plain, ops), buckets, chunk)

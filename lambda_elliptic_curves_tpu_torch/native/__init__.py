@@ -196,6 +196,7 @@ def cuda_lib():
                 "lw_curve_op": [I, I, P, P, P, P, L, P],
                 "lw_msm_bucket_accumulate": [I, I, P, P],
                 "lw_msm_bucket_reduce": [I, P, P],
+                "lw_msm_bucket_occupancy": [I, I, I, P],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)

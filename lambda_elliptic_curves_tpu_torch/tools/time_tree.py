@@ -29,7 +29,18 @@ otherwise.  The groups, run in this order whatever order they are given in
   elements with zeros, each output first held bitwise against Fermat
   (a^(p-2) on the card, zeros to zero); one warm prove at 2^16 and at 2^20
   rows under ``torch.profiler``: batch inversion's device ms and launches
-  per prove (the launch counters and the trace), and the device busy ms.
+  per prove (the launch counters and the trace), and the device busy ms;
+* ``bucket``: Pippenger's bucket phase (kernel 11, ``curves.msm``'s
+  ``bucket_sums`` and ``weighted_bucket_sums``) over the ids of 17 windows
+  of 2^16 random scalars at c = 15 (an MSM of 2^16 points) and random
+  affine points, for BN254 G1, BLS12-377 G1 and BLS12-377 G2: the whole
+  phase, the accumulate and the reduce alone, and its launches; then a
+  Groth16 prove over BLS12-377 of a chain of 2^16 constraints (setup seed
+  9, prove seeds 10 and 11), the second, warm, under ``torch.profiler``:
+  kernel 11's device ms and launches, the device busy ms and the wall ms;
+* ``plonk``: a Plonk prove over BN254 of a 2^16-gate chain (SRS of n + 6
+  points at tau 7913), a first and a warm one under ``torch.profiler``:
+  kernel 11's device ms and launches, busy and wall ms (about a minute).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -47,7 +58,7 @@ if __package__:
 else:  # run as a script: this file's folder heads sys.path, whatever DIR holds
     from _timing import cache_bytes, cuda_ms, profile, random_field, smi
 
-GROUPS = ("prove", "fft", "field", "inverse")
+GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk")
 
 
 class Failed(Exception):
@@ -182,7 +193,97 @@ def main() -> int:
                 "field_pow_launches": native.launches["field_pow"],
                 "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
 
-    runs = {"prove": run_prove, "fft": run_fft, "field": run_field, "inverse": run_inverse}
+    def kernel_11(stats):
+        k11 = [v for k, v in stats["by_kernel"].items() if "msm_bucket" in k]
+        return {"kernel_11_device_ms": sum(v["ms"] for v in k11),
+                "kernel_11_traced_launches": sum(v["launches"] for v in k11),
+                "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
+
+    def run_bucket():
+        import random
+
+        import numpy as np
+        from lambda_elliptic_curves_tpu_torch import fields
+        from lambda_elliptic_curves_tpu_torch.curves import msm as M
+        from lambda_elliptic_curves_tpu_torch.curves.pairings import BLS12377Pairing
+        from lambda_elliptic_curves_tpu_torch.curves.twists import bls12_377_twist
+        from lambda_elliptic_curves_tpu_torch.curves.zoo import BLS12377Curve, BN254Curve
+        from lambda_elliptic_curves_tpu_torch.provers.groth16 import (
+            QuadraticArithmeticProgram, circuits, prove as g16_prove, setup as g16_setup,
+        )
+
+        n, c = 1 << 16, 15
+        for name, curve in (("bn254_g1", BN254Curve), ("bls12_377_g1", BLS12377Curve),
+                            ("bls12_377_g2", bls12_377_twist())):
+            ops, rng = M.make_ops(curve), np.random.default_rng(21)
+            fq = ops.f
+            g2 = fq.num_limbs > 12
+            vals = lambda: [int.from_bytes(rng.bytes(48), "little") % fq.p  # noqa: E731
+                            for _ in range(2 * n if g2 else n)]
+            coord = lambda v: fq.array(list(zip(v[::2], v[1::2])) if g2 else v, dev)  # noqa
+            pts = (coord(vals()), coord(vals()), fq.ones((n,), dev))
+            scalars = [int.from_bytes(rng.bytes(32), "little") % curve.order for _ in range(n)]
+            digits = M.scalars_to_digits(curve, scalars, dev)
+            ids = M.window_ids(digits, c, -(-curve.order.bit_length() // c))
+            table = M.bucket_sums(ops, ids, pts, 1 << c)
+            for k in native.launches:
+                native.launches[k] = 0
+            M.weighted_bucket_sums(ops, M.bucket_sums(ops, ids, pts, 1 << c))
+            torch.cuda.synchronize()
+            launches = sum(native.launches.values())
+            rec[f"bucket_{name}"] = {
+                "ms": cuda_ms(lambda: M.weighted_bucket_sums(ops, M.bucket_sums(
+                    ops, ids, pts, 1 << c)), 3),
+                "accumulate_ms": cuda_ms(lambda: M.bucket_sums(ops, ids, pts, 1 << c), 3),
+                "reduce_ms": cuda_ms(lambda: M.weighted_bucket_sums(ops, table), 3),
+                "launches": launches}
+            del pts, table
+            torch.cuda.empty_cache()
+        cfg, m, fr = BLS12377Pairing, 1 << 16, fields.BLS12377Fr
+        qap = QuadraticArithmeticProgram.from_r1cs(fr, circuits.chain_r1cs(m))
+        witness = circuits.chain_witness(m, 3, 5, fr.p)
+        pk, _ = g16_setup(qap, cfg, random.Random(9), device=dev)
+        g16_prove(witness, qap, pk, cfg, random.Random(10), device=dev)
+        torch.cuda.synchronize()
+        _, stats = profile(lambda: g16_prove(witness, qap, pk, cfg, random.Random(11),
+                                             device=dev), top=40)
+        rec["groth16_2^16_warm"] = kernel_11(stats)
+
+    def run_plonk():
+        import random
+
+        from lambda_elliptic_curves_tpu_torch import fields
+        from lambda_elliptic_curves_tpu_torch.commitments import (
+            KateZaveruchaGoldberg, StructuredReferenceString,
+        )
+        from lambda_elliptic_curves_tpu_torch.curves.pairings import BN254Pairing
+        from lambda_elliptic_curves_tpu_torch.provers.plonk import (
+            CommonPreprocessedInput, ConstraintSystem, Prover, RandomFieldGenerator, Witness,
+            setup as plonk_setup,
+        )
+        from lambda_elliptic_curves_tpu_torch.provers.plonk.circuits import (
+            chain_circuit, chain_output, chain_steps,
+        )
+
+        fr, n = fields.BN254Fr, 1 << 16
+        system = ConstraintSystem(fr)
+        steps = chain_steps(n)
+        x, y, e = chain_circuit(system, steps)
+        assignments = system.solve({x: fr(4), e: fr(3), y: chain_output(fr, steps, 4, 3)})
+        cpi = CommonPreprocessedInput.from_constraint_system(system, 7, device=dev)
+        srs = StructuredReferenceString.insecure_setup(BN254Pairing, n + 6, tau=7913, device=dev)
+        kzg = KateZaveruchaGoldberg(BN254Pairing, srs, device=dev)
+        vk = plonk_setup(cpi, kzg)
+        witness = Witness.new(assignments, system)
+        public = system.public_input_values(assignments)
+        prover = Prover(kzg, RandomFieldGenerator(fr, random.Random(1)))
+        prover.prove(witness, public, cpi, vk)
+        torch.cuda.synchronize()
+        _, stats = profile(lambda: prover.prove(witness, public, cpi, vk), top=40)
+        rec["plonk_2^16_warm"] = kernel_11(stats)
+
+    runs = {"prove": run_prove, "fft": run_fft, "field": run_field, "inverse": run_inverse,
+            "bucket": run_bucket, "plonk": run_plonk}
     try:
         for group in GROUPS:
             if group in groups:

@@ -628,10 +628,12 @@ def _skewed_ids(n, c, seed, dev):
 
 
 @pytest.mark.parametrize("group", _CURVE_GROUPS)
-def test_msm_bucket_kernel_matches_plain(dev, group):
+def test_msm_bucket_kernel_matches_plain(dev, group, monkeypatch):
     """Kernel 11's accumulate and reduce over 2^11 points and 2^8 buckets,
     at skewed ids and points at infinity, bitwise against the plain bucket
-    phase on the card; one launch a level."""
+    phase on the card: at the default tiles (one launch each: 128 leaves of
+    16 positions, 16 leaves of 16 buckets), and at tiles of 4 leaves (four
+    accumulate levels, two reduce levels)."""
     from lambda_elliptic_curves_tpu_torch.curves import msm as M
 
     ops = M.make_ops(_curve(group))
@@ -639,40 +641,79 @@ def test_msm_bucket_kernel_matches_plain(dev, group):
     pts = _random_triples(ops, n, 5, dev, affine=True)
     pts = ops.select(torch.arange(n, device=dev) % 97 == 0, ops.neutral((n,), dev), pts)
     ids = _skewed_ids(n, c, 6, dev)
-    native.launches.update({k: 0 for k in native.launches})
-    got = M.bucket_sums(ops, ids, pts, 1 << c)
-    torch.cuda.synchronize()
-    assert native.launches[ops.counter("msm_bucket")] == 4  # 2^11 -> 256 -> 32 -> 4 slots
-    want = M.bucket_sums_plain(ops, ids, pts, 1 << c)
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
-    native.launches.update({k: 0 for k in native.launches})
-    got_w = M.weighted_bucket_sums(ops, got)
-    torch.cuda.synchronize()
-    assert native.launches[ops.counter("msm_bucket")] == 2  # 256 -> 16 -> 1 chunks
-    assert all(torch.equal(x, y) for x, y in zip(got_w, M.weighted_bucket_sums_plain(ops, want)))
+    for tile, acc_launches, reduce_launches in ((0, 1, 1), (4, 4, 2)):
+        if tile:  # 2^11 -> 64 -> 16 -> 4 slots, then 2 leaves; 16 -> 4 -> 1 tiles
+            monkeypatch.setattr(M, "BUCKET_TILE", tile)
+        native.launches.update({k: 0 for k in native.launches})
+        got = M.bucket_sums(ops, ids, pts, 1 << c)
+        torch.cuda.synchronize()
+        assert native.launches[ops.counter("msm_bucket")] == acc_launches
+        want = M.bucket_sums_plain(ops, ids, pts, 1 << c)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        native.launches.update({k: 0 for k in native.launches})
+        got_w = M.weighted_bucket_sums(ops, got)
+        torch.cuda.synchronize()
+        assert native.launches[ops.counter("msm_bucket")] == reduce_launches
+        assert all(torch.equal(x, y)
+                   for x, y in zip(got_w, M.weighted_bucket_sums_plain(ops, want)))
+
+
+def _comb_points(curve, ops, n, seed, dev):
+    """n points k_i G of the group (the comb on the card, then affine)."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    rng = np.random.default_rng(seed)
+    ks = [int.from_bytes(rng.bytes(32), "little") % curve.order for _ in range(n)]
+    return ops.affine_points(M.fixed_base_multiples(
+        curve, M.scalars_to_digits(curve, ks, dev), curve.generator(), ops))
 
 
 def test_pippenger_launches_kernel_11_and_no_group_op(dev):
-    """A Pippenger MSM of 2^12 points on the card: its bucket phase is
-    kernel 11's levels alone (no kernel 10 launch, kernel 8 only in the
-    windows' affine conversion); the value is the double-and-add's."""
+    """A Pippenger MSM of 2^12 points on the card (c = 13, 20 windows): its
+    bucket phase is kernel 11's levels alone, exactly 4 launches (the
+    accumulate: 2 tiles a window of 2048 positions, then their 4 slots; the
+    reduce: 4 tiles a window of 128 leaves of 16 buckets, then their
+    roots), and nothing else runs on the card: no kernel 10 (group op) and
+    no kernel 8 or 9, since the 20 window sums go affine on the host; the
+    value is the double-and-add's."""
     from lambda_elliptic_curves_tpu_torch.curves import msm as M
     from lambda_elliptic_curves_tpu_torch.curves.zoo import BN254Curve
 
     ops = M.make_ops(BN254Curve)
-    rng = np.random.default_rng(8)
+    pts = _comb_points(BN254Curve, ops, 1 << 12, 8, dev)
+    rng = np.random.default_rng(9)
     r = BN254Curve.order
-    ks = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(1 << 12)]
-    pts = ops.affine_points(M.fixed_base_multiples(
-        BN254Curve, M.scalars_to_digits(BN254Curve, ks, dev), BN254Curve.generator(), ops))
     scalars = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(1 << 12)]
     digits = M.scalars_to_digits(BN254Curve, scalars, dev)
     native.launches.update({k: 0 for k in native.launches})
     value = M.msm_pippenger(BN254Curve, digits, pts, ops=ops)
-    assert native.launches["curve_op"] == 0
-    assert 2 <= native.launches["msm_bucket"] <= 12
-    assert native.launches["dense_field"] <= 12
+    assert native.launches["msm_bucket"] == 4
+    assert sum(native.launches.values()) == 4
     assert value == ops.to_host(M.msm_double_and_add(BN254Curve, digits, pts, ops))[0]
+
+
+@pytest.mark.parametrize("group", _CURVE_GROUPS)
+def test_pippenger_skewed_scalars_equal_double_and_add(dev, group):
+    """Pippenger MSMs of 2^12 points with skewed scalars, every scalar
+    equal (one bucket a window) and 90% 0 or 1 with the rest uniform (a
+    circom-style witness), equal to the device double-and-add, an
+    independent algorithm; the bucket phase is 4 launches of kernel 11."""
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+
+    curve = _curve(group)
+    ops = M.make_ops(curve)
+    n = 1 << 12
+    pts = _comb_points(curve, ops, n, 10, dev)
+    rng = np.random.default_rng(11)
+    draw = lambda: int.from_bytes(rng.bytes(32), "little") % curve.order  # noqa: E731
+    one = draw()
+    for scalars in ([one] * n,
+                    [0 if u < 0.45 else 1 if u < 0.9 else draw() for u in rng.random(n)]):
+        digits = M.scalars_to_digits(curve, scalars, dev)
+        native.launches.update({k: 0 for k in native.launches})
+        value = M.msm_pippenger(curve, digits, pts, ops=ops)
+        assert native.launches[ops.counter("msm_bucket")] == 4
+        assert value == ops.to_host(M.msm_double_and_add(curve, digits, pts, ops))[0]
 
 
 @pytest.mark.parametrize("case", ["plonk4", "plonk32"])

@@ -3,9 +3,11 @@ bitwise against their plain versions, for the four curve groups (BN254 G1
 and G2, BLS12-377 G1 and G2).
 
 ``csrc/curve.cuh``'s group law runs lane by lane as kernel 10 runs it
-(``lw_curve_op_lane``), and ``csrc/msm_bucket.cuh``'s chunk functions chunk
-by chunk as kernel 11's threads run them, driven level by level by the
-port's own level loop (``curves/msm.py``).  Both are plain C++ (no carry-flag
+(``lw_curve_op_lane``), and ``csrc/msm_bucket.cuh``'s blocks block by block
+(``lw_bucket_*_block_seq``: every thread's step before the next step, as
+kernel 11's barriers order them, the tile in host memory filled with
+garbage first), driven level by level by the port's own level loop
+(``curves/msm.py``).  Both are plain C++ (no carry-flag
 instructions), so the host build computes what the card computes.  The
 plain versions are :class:`JacobianOps` / :class:`TwistJacobianOps`'s ops
 on CPU tensors and the bucket phase's PyTorch version.  Inputs: points k G
@@ -33,6 +35,9 @@ GROUPS = {"bn254_g1": BN254Curve, "bn254_g2": bn254_twist(),
           "bls12_377_g1": BLS12377Curve, "bls12_377_g2": bls12_377_twist()}
 
 _HOST_SRC = r"""
+#include <stdlib.h>
+#include <string.h>
+
 #include "msm_bucket.cuh"
 
 template <class G>
@@ -42,21 +47,31 @@ static void lanes(int op, const long* args, int32_t* ox, int32_t* oy, int32_t* o
     for (long i = 0; i < n; i++) lw_curve_op_lane<G>(op, a, b, out, n, i);
 }
 
+static void* tile_mem(size_t bytes) {  // unset shared memory: garbage
+    void* mem = malloc(bytes);
+    memset(mem, 0x5A, bytes);
+    return mem;
+}
+
 template <class G>
 static void accumulate(int mixed, const long* args) {
     const LwBucketAcc a = lw_bucket_acc_arg(args);
-    for (long w = 0; w < a.W; w++)
-        for (long k = 0; k < a.K; k++) {
-            if (mixed) lw_bucket_accumulate_chunk<G, true>(a, w, k);
-            else lw_bucket_accumulate_chunk<G, false>(a, w, k);
-        }
+    for (long blk = 0; blk < a.W * a.K; blk++) {
+        void* mem = tile_mem(lw_acc_tile_bytes<G>(a.P));
+        if (mixed) lw_bucket_acc_block_seq<G, true>(a, mem, blk);
+        else lw_bucket_acc_block_seq<G, false>(a, mem, blk);
+        free(mem);
+    }
 }
 
 template <class G>
 static void reduce(const long* args) {
     const LwBucketReduce a = lw_bucket_reduce_arg(args);
-    for (long w = 0; w < a.W; w++)
-        for (long k = 0; k < a.K; k++) lw_bucket_reduce_chunk<G>(a, w, k);
+    for (long blk = 0; blk < a.W * a.K; blk++) {
+        void* mem = tile_mem(lw_reduce_tile_bytes<G>(a.P));
+        lw_bucket_reduce_block_seq<G>(a, mem, blk);
+        free(mem);
+    }
 }
 
 extern "C" void curve_op(int group, int op, const long* args, int32_t* ox, int32_t* oy,
@@ -228,48 +243,127 @@ def _ids(seed, nbuckets, S):
     return torch.from_numpy(np.stack([distinct, same, half]).astype(np.int64))
 
 
+def _host_bucket_phase(host, ops, ids, pts, nbuckets, chunk, reduce_chunk, tile):
+    """msm_bucket.cuh's accumulate and reduce levels built for the host,
+    block by block through the port's level loop, and the plain bucket
+    phase at the same leaves and tiles: (got table, got sums, plain table,
+    plain sums)."""
+    gid = ops.curve.kernel_group
+    level = functools.partial(M._accumulate_level_native, ops,
+                              lambda args, mixed: host.bucket_accumulate(gid, int(mixed), args))
+    got = M._bucket_sums(ops, level, ids, pts, nbuckets, chunk, tile)
+    want = M._bucket_sums(ops, functools.partial(M._accumulate_level_plain, ops), ids, pts,
+                          nbuckets, chunk, tile)
+    level = functools.partial(M._reduce_level_native, ops, lambda args: host.bucket_reduce(gid,
+                                                                                         args))
+    got_w = M._weighted_bucket_sums(level, got, reduce_chunk, tile)
+    want_w = M._weighted_bucket_sums(functools.partial(M._reduce_level_plain, ops), want,
+                                     reduce_chunk, tile)
+    return got, got_w, want, want_w
+
+
+def _weighted(pt, j):
+    return pt.mul(j) if hasattr(pt, "mul") else pt.operate_with_self(j)
+
+
 @pytest.mark.parametrize("group, chunk, reduce_chunk",
                          [(g, 4, 4) for g in ("bls12_377_g2", "bn254_g2")]
                          + [(g, c, m) for g in ("bls12_377_g1", "bn254_g1")
                             for c, m in ((4, 2), (16, 4))])
 def test_host_bucket_phase_equals_plain(host, group, chunk, reduce_chunk):
-    """msm_bucket.cuh's accumulate and reduce, chunk by chunk through the
-    port's level loop, against the plain bucket phase at the same
-    chunks, bitwise (at 4, the least chunk that shrinks the levels, over
-    every group; at the default 16 and the reduce's least chunk, 2, over
-    G1, whose plain additions are the cheaper); the buckets' sums are the
-    host's."""
+    """msm_bucket.cuh's accumulate and reduce, block by block through the
+    port's level loop, against the plain bucket phase at the same leaves,
+    bitwise, in tiles of 2 leaves (so that the 16 positions take two or
+    three accumulate levels); the buckets' sums are the host's."""
     ops = M.make_ops(GROUPS[group])
     nbuckets, S = 16, 16
     host_pts = _host_points(group, 7, S)
     pts = ops.from_host(host_pts, "cpu")
     ids = _ids(8, nbuckets, S)
-    gid = ops.curve.kernel_group
-    level = functools.partial(M._accumulate_level_native, ops,
-                              lambda args, mixed: host.bucket_accumulate(gid, int(mixed), args))
-    got = M._bucket_sums(ops, level, ids, pts, nbuckets, chunk)
-    want = M.bucket_sums(ops, ids, pts, nbuckets, chunk)
+    got, got_w, want, want_w = _host_bucket_phase(host, ops, ids, pts, nbuckets, chunk,
+                                                  reduce_chunk, 2)
     assert _equal(got, want)
+    assert _equal(got, M.bucket_sums(ops, ids, pts, nbuckets, chunk))  # the tile is no term
     table = ops.to_host(tuple(c[:, 1] for c in got))  # the one-bucket window
     j = int(ids[1, 0])
     total = functools.reduce(lambda u, v: u + v, host_pts)
     assert table[j] == total and all(t == ops.curve.neutral() for i, t in enumerate(table)
                                      if i != j)
-    level = functools.partial(M._reduce_level_native, ops, lambda args: host.bucket_reduce(gid,
-                                                                                         args))
-    got_w = M._weighted_bucket_sums(level, got, reduce_chunk)
-    assert _equal(got_w, M.weighted_bucket_sums(ops, want, reduce_chunk))
-    weighted = total.mul(j) if hasattr(total, "mul") else total.operate_with_self(j)
-    assert ops.to_host(tuple(c[:, 1] for c in got_w))[0] == weighted
+    assert _equal(got_w, want_w)
+    assert ops.to_host(tuple(c[:, 1] for c in got_w))[0] == _weighted(total, j)
+
+
+def _skewed_ids(seed, nbuckets, S):
+    """Four windows: every id equal, half zeros, a single nonzero id, and
+    mostly 0 and 1 (a circom-style witness)."""
+    rng = np.random.default_rng(seed)
+    same = np.full(S, rng.integers(1, nbuckets))
+    half = np.where(rng.random(S) < 0.5, 0, rng.integers(1, nbuckets, S))
+    single = np.zeros(S, np.int64)
+    single[rng.integers(S)] = rng.integers(1, nbuckets)
+    mostly = rng.choice([0, 1, 2, nbuckets - 1], S, p=[0.45, 0.45, 0.05, 0.05])
+    return torch.from_numpy(np.stack([same, half, single, mostly]).astype(np.int64))
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+@pytest.mark.parametrize("chunk, reduce_chunk, tile", [(3, 2, 2), (16, 16, 128)])
+def test_host_bucket_phase_skewed_ids(host, group, chunk, reduce_chunk, tile):
+    """The blocks over skewed ids, bitwise against the plain bucket phase,
+    and every bucket and window sum against host arithmetic: every id
+    equal, half zeros, a single nonzero id, mostly 0 and 1; at leaves of 3
+    positions or 2 buckets in tiles of 2 (deep trees: three accumulate
+    levels, three reduce levels) and at the defaults, where the 12
+    positions and the 16 buckets are shorter than one tile."""
+    ops = M.make_ops(GROUPS[group])
+    nbuckets, S = 16, 12
+    host_pts = _host_points(group, 9, S)
+    pts = ops.from_host(host_pts, "cpu")
+    ids = _skewed_ids(10, nbuckets, S)
+    got, got_w, want, want_w = _host_bucket_phase(host, ops, ids, pts, nbuckets, chunk,
+                                                  reduce_chunk, tile)
+    assert _equal(got, want) and _equal(got_w, want_w)
+    table = ops.to_host(tuple(c.reshape(c.shape[0], -1) for c in got))
+    sums = ops.to_host(tuple(c.reshape(c.shape[0], -1) for c in got_w))
+    zero = ops.curve.neutral()
+    for w in range(ids.shape[0]):
+        buckets = [zero] * nbuckets
+        for i in range(S):
+            if int(ids[w, i]):
+                buckets[int(ids[w, i])] = buckets[int(ids[w, i])] + host_pts[i]
+        assert table[w * nbuckets:(w + 1) * nbuckets] == buckets
+        assert sums[w] == functools.reduce(lambda u, v: u + v, (
+            _weighted(b, j) for j, b in enumerate(buckets) if j), zero)
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_first_level_leaves_fill_one_wave(group):
+    """An MSM of 2^16 points at c = 15 (17 windows): the accumulate's
+    first leaves grow until the windows' tiles take one wave of the card's
+    blocks (``WAVE_BLOCKS``), and not a position longer; small MSMs keep
+    the least leaves."""
+    ops = M.make_ops(GROUPS[group])
+    waves, least, tile = M.WAVE_BLOCKS[ops.curve.kernel_group], M.BUCKET_CHUNK, M.BUCKET_TILE
+    for n in (1 << 16, 65539):
+        leaf = M._leaf_length(least, n, 17, tile, ops)
+        tiles = lambda t: 17 * -(-(-(-n // t)) // tile)  # noqa: E731
+        assert tiles(leaf) <= waves and (leaf == least or tiles(leaf - 1) > waves)
+    assert M._leaf_length(least, 1 << 12, 20, tile, ops) == least
 
 
 def test_chunks_that_cannot_shrink_are_refused():
-    """An accumulate chunk below 4 positions, or a reduce chunk that is no
-    power of two, would leave the level sequence as long as it was."""
+    """An accumulate leaf of no position, a reduce leaf that is no power of
+    two (its running sum is scaled by doublings), and a tile of one leaf
+    (two slots a tile of merges: the level sequence as long as it was), of
+    a size that is no power of two, or of more than the kernel's block, are
+    refused."""
     ops = M.make_ops(BN254Curve)
     pts = ops.from_host([BN254Curve.generator()] * 8, "cpu")
     ids = torch.arange(8, dtype=torch.int64).reshape(1, 8)
+    plain = functools.partial(M._accumulate_level_plain, ops)
     with pytest.raises(ValueError):
-        M.bucket_sums(ops, ids, pts, 8, chunk=3)
+        M.bucket_sums(ops, ids, pts, 8, chunk=0)
+    for tile in (1, 3, 2 * M.TILE_MAX):
+        with pytest.raises(ValueError):
+            M._bucket_sums(ops, plain, ids, pts, 8, 4, tile)
     with pytest.raises(ValueError):
         M.weighted_bucket_sums(ops, ops.neutral((1, 8), "cpu"), chunk=3)
