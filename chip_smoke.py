@@ -41,7 +41,15 @@ Phases (one result line each, with its seconds):
      their bounds; 2j holds kernel 1's BN254 Fr entry against
      ``ntt_pass_plain`` at every pass of every size 2^1 .. 2^20, forward
      and inverse root, the fft at 2^18 against the plain transform, and
-     times the fft at 2^16, 2^18 and 2^22; 2k and 2l do the same over
+     times the fft's passes alone (``ms``) and whole calls at 2^16, 2^18 and
+     2^22; it holds the entry's product (``csrc/dense32.cuh``) against
+     ``dense.cuh``'s on 2^20 random pairs and the edge values
+     (``tools/dense_mul.py``, built beside the library in phase 1),
+     reports both products' and butterflies' SASS instructions, bounds the
+     fft by the fewer of dense32.cuh's SASS and the fixed count
+     (``fixed_bound_ms``: 490 instructions a product, 48 a sum), and
+     reports each pass's grid, registers and occupancy at 2^16 .. 2^18 (at
+     least 132 blocks a pass); 2k and 2l do the same over
      BLS12-377 (kernels 8 and 9 over Fr and over Fq on six words, kernel 1
      over Fr; every pass and the fft, both roots, also at the QAP's 3 rows
      at 2^16 and 2^17; the fft checked at 2^17 and timed at 2^16, 2^17,
@@ -346,9 +354,18 @@ def phase_build(state):
 
     @phase("1 build")
     def run():
+        import threading
+
+        from lambda_elliptic_curves_tpu_torch.tools import dense_mul
+
         t0 = time.perf_counter()
+        # the product tool (phases 2j, 2l) builds beside the library
+        side = threading.Thread(target=dense_mul.build)
+        side.start()
         native.cuda_lib()
         native.host_keccak()
+        side.join()
+        dense_mul.build()  # raises here if the side build failed
         state["build_s"] = time.perf_counter() - t0
         state["build_seconds"] = {k: round(v, 1) for k, v in sorted(
             native.build_seconds.items(), key=lambda kv: -kv[1])}
@@ -1336,6 +1353,8 @@ DENSE_CURVES = {
 def phase_dense_kernels(state, curve):
     """Kernels 8 and 9 over ``curve``'s Fr and Fq, and kernel 1 over its Fr,
     against their plain versions, timed against their bounds."""
+    import ctypes
+
     import torch
     from lambda_elliptic_curves_tpu_torch import native
     from lambda_elliptic_curves_tpu_torch.poly import ntt
@@ -1440,10 +1459,57 @@ def phase_dense_kernels(state, curve):
         # counts (prove_rows); the fft at the kernels line's size and at the
         # prover's row counts against the plain transform; fft times
         # against the bound
+        from lambda_elliptic_curves_tpu_torch.tools import dense_mul
+
         f = fields["fr"]
         prove_rows = cfg["prove_rows"]
         counter = f.ops.ntt_counter
         err, checked, times = 0, 0, {}
+        # the pass's product (dense32.cuh) against dense.cuh's CIOS product,
+        # 2^20 random pairs and the edge values each against each, over Fr
+        # (and BLS12-377 Fq on six words)
+        products = {}
+        for name in (("fr",) if curve == "bn254" else ("fr", "fq")):
+            got = dense_mul.check(fields[name].ops.kernel_id)
+            check(got["pairs"] > 1 << 20 and all(v == 0 for k, v in got.items() if k != "pairs"),
+                  f"{label} {name}: dense32.cuh's product != dense.cuh's: {got}")
+            products[name] = got
+        # each pass's grid at the provers' sizes: blocks, threads, registers,
+        # spilled bytes and the blocks an SM holds (the occupancy calculator)
+        grids, info = {}, (ctypes.c_int * 4)()
+        for log_n, rows in [(16, 1), (17, 1), (18, 1)] + sorted(prove_rows.items()):
+            passes = []
+            for s in ntt.dense_pass_plan(log_n):
+                lc = ntt.dense_cols_log(rows, log_n, s, ntt.sm_count(dev))
+                rc = native.cuda_lib().lw_dense_ntt_info(f.ops.kernel_id, s, lc, info)
+                check(rc == 0, f"lw_dense_ntt_info: CUDA error {rc}")
+                blocks = -(-(rows << (log_n - s)) >> lc)
+                check(blocks >= 132, f"{label} 2^{log_n} x {rows}: a pass of {blocks} blocks")
+                passes.append({"radix": s, "cols_log": lc, "blocks": blocks, "threads": info[0],
+                               "blocks_per_sm": info[1], "registers": info[2],
+                               "local_bytes": info[3],
+                               "warps_per_sm": info[1] * -(-info[0] // 32)})
+            grids[f"2^{log_n} x {rows}"] = passes
+        # the bound's instruction counts: the fixed count (DENSE_MUL_OPS and
+        # two DENSE_ADD_OPS a butterfly, as since the first version), and
+        # the fewest a product and a butterfly are known to need (this
+        # build's dense32.cuh SASS, tools/dense_mul.py); the bound is the
+        # lesser of the two
+        if "dense_mul_sass" not in state:
+            state["dense_mul_sass"] = dense_mul.sass_counts()
+        fname = {"bn254": "bn254_fr", "bls12_377": "bls12_377_fr"}[curve]
+        chains = f"{fname} {dense_mul.VARIANTS[1]}"
+        least = {"product": dense_mul.sass_ops(state["dense_mul_sass"][chains]),
+                 "butterfly": dense_mul.sass_ops(state["dense_mul_sass"][chains + " butterfly"])}
+
+        def ntt_bounds(log_n):
+            """((least ms, what bounds it), the fixed count's least ms) of
+            a one-row transform of 2^log_n points."""
+            n, bfly = 1 << log_n, (1 << log_n) // 2 * log_n
+            fixed = _dense_bound(state, n, bfly, 2 * bfly, values=2)
+            known = bound(state, 2 * 32.0 * n, ops((bfly, least["product"]),
+                                                   (bfly, least["butterfly"])))
+            return min(fixed, known), fixed[0]
         for log_n in range(1, 21):
             w = f.params.primitive_root_of_unity(log_n)
             for root in (w, pow(w, f.p - 2, f.p)):
@@ -1453,7 +1519,7 @@ def phase_dense_kernels(state, curve):
                     x = _random_dense(f, rows << log_n, gen).reshape(f.num_limbs, rows, -1)
                     for max_pass_log in (ntt.MAX_PASS_LOG, 3)[:2 if log_n <= 14 else 1]:
                         cur, ns_log = x, 0
-                        for s in ntt.pass_plan(log_n, max_pass_log):
+                        for s in ntt.dense_pass_plan(log_n, max_pass_log):
                             native.launches[counter] = 0
                             got = ntt.ntt_pass(cur, torch.empty_like(cur), tables, ns_log, s)
                             check(native.launches[counter] == 1, "a pass is one launch")
@@ -1472,7 +1538,7 @@ def phase_dense_kernels(state, curve):
             x = _random_dense(f, n, gen)
             native.launches[counter] = 0
             y = ntt.fft(x, f)
-            check(native.launches[counter] == len(ntt.pass_plan(log_n)),
+            check(native.launches[counter] == len(ntt.dense_pass_plan(log_n)),
                   f"{label} fft 2^{log_n}: {native.launches[counter]} launches")
             if log_n == line_log:
                 want = ntt.fft_with_root_plain(x, f, root)
@@ -1480,10 +1546,18 @@ def phase_dense_kernels(state, curve):
                 check(err == 0, f"{label} fft 2^{log_n} != its plain version")
                 check(torch.equal(ntt.ifft(y, f), x), f"{label} ifft(fft(x)) != x at 2^{log_n}")
                 del want
-            ms = cuda_ms(lambda: ntt.fft(x, f), 10)
-            b_ms, b_by = _dense_bound(state, n, n // 2 * log_n, n * log_n, values=2)
+            # the passes' launches alone (the fft's own host work, about 0.1 ms
+            # a call, outlasts them up to 2^18), then a whole fft call
+            plan, xr = ntt.dense_pass_plan(log_n), x.reshape(f.num_limbs, 1, n)
+            tables = ntt.twiddle_tables(f, root, log_n, dev)
+            out, buf = torch.empty_like(xr), torch.empty_like(xr)
+            ms = cuda_ms(lambda: ntt._launch(xr, out, buf, tables, 0, plan), 20)
+            (b_ms, b_by), fixed_ms = ntt_bounds(log_n)
             times[f"fft 2^{log_n}"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                                       "share": b_ms / ms, "passes": ntt.pass_plan(log_n)}
+                                       "share": b_ms / ms, "fixed_bound_ms": fixed_ms,
+                                       "fixed_share": fixed_ms / ms, "passes": plan,
+                                       "fft_call_ms": cuda_ms(lambda: ntt.fft(x, f), 10)}
+            del out, buf
             if log_n == line_log:
                 times[f"fft 2^{log_n}"]["plain_ms"] = cuda_ms(
                     lambda: ntt.fft_with_root_plain(x, f, root), 1)
@@ -1495,22 +1569,33 @@ def phase_dense_kernels(state, curve):
             for root in (w, pow(w, f.p - 2, f.p)):
                 native.launches[counter] = 0
                 got = ntt.fft_with_root(x, f, root)
-                check(native.launches[counter] == len(ntt.pass_plan(log_n)),
+                check(native.launches[counter] == len(ntt.dense_pass_plan(log_n)),
                       f"{label} fft 2^{log_n} x {rows}: {native.launches[counter]} launches")
                 err = max(err, max_abs_err(got, ntt.fft_with_root_plain(x, f, root)))
                 check(err == 0, f"{label} fft 2^{log_n} x {rows} != its plain version")
             del x, got
             torch.cuda.empty_cache()
         t = times[f"fft 2^{line_log}"]
+        sass = {v + what: state["dense_mul_sass"].get(f"{fname} {v}{what}", {}).get(
+            "instructions") for v in dense_mul.VARIANTS.values() for what in ("", " butterfly")}
         rec["dense_ntt" + suffix].update(
-            max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None,
-            shape=f"{label} Fr fft 2^{line_log} ({line_what}), passes {t['passes']}")
-        state[f"{curve}_ntt"] = times
+            max_abs_err=err, ms=t["ms"], ms_what="the passes' launches alone (ntt._launch)",
+            fft_call_ms=t["fft_call_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None, share=t["share"],
+            bound_counts=f"(n/2) log2 n products and butterflies at dense32.cuh's SASS "
+                         f"{json.dumps(least)} (multiply-adds, logic, other)",
+            fixed_bound_ms=t["fixed_bound_ms"], fixed_share=t["fixed_share"],
+            shape=f"{label} Fr fft 2^{line_log} ({line_what}), passes {t['passes']}",
+            grid=grids[f"2^{line_log} x 1"], sass_instructions=sass)
+        state[f"{curve}_ntt"] = {"times": times, "grids": grids, "products": products,
+                                 "sass": sass, "least_ops": least}
         return (f"{checked} passes bitwise equal to ntt_pass_plain (2^1 .. 2^20, forward and "
                 f"inverse root, 1 row, and 2 rows and radix <= 2^3 up to 2^14; the prover's "
                 f"rows by log2 n: {prove_rows}); fft 2^{line_log} = plain fft, ifft round trip; "
-                f"ffts at the prover's rows = plain; " + json.dumps(times))
+                f"ffts at the prover's rows = plain; dense32.cuh's product = dense.cuh's on "
+                f"{json.dumps(products)}; SASS instructions {json.dumps(sass)}; every "
+                f"pass of 2^16 .. 2^18 on >= 132 blocks: {json.dumps(grids)}; "
+                + json.dumps(times))
     run_ntt()
 
 

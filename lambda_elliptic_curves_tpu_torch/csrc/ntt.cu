@@ -1,10 +1,10 @@
 // NTT pass kernel (kernel 1) over Stark252, BN254 Fr and BLS12-377 Fr: one launch
 // runs one Stockham pass of radix 2^s over (8, rows, N) limb planes;
 // poly/ntt.py runs a transform of 2^L points as ceil(L / s_max) such
-// passes, natural order in and out.  The kernel is a template on the field
-// (ntt.cuh): LwStark252 for lw_ntt_passes, LwBn254Fr and LwBls12377Fr
-// (dense.cuh) for lw_dense_ntt_passes; everything below holds for all three
-// but the product.
+// passes, natural order in and out.  Stark252 runs ntt_pass_kernel
+// (lw_ntt_passes, the block in ntt.cuh, the product in mont.cuh); the dense
+// fields run ntt_dense_pass_kernel (lw_dense_ntt_passes, the block in
+// ntt_dense.cuh, the product in dense32.cuh), which computes the same pass.
 //
 // Replaces the Pallas kernel lambda_elliptic_curves_tpu/poly/ntt_pallas.py
 // :109 _kernel_for (pallas_call at :164; driven by _local_fft :183), which
@@ -18,11 +18,11 @@
 //
 // Bound on this card: 32-bit integer operations.  A transform does
 // (N/2) log2 N butterflies, each a Montgomery product (about 170 integer
-// instructions: 64 widening products of a*b, 24 of m*p) plus an add and a
-// subtract, against 64 bytes of device memory per point and pass.  At
-// N = 2^22, issued at 128 instructions per clock per SM across the two
-// integer pipes, that is 0.30 ms of operations against 0.08 ms of bytes
-// per pass.
+// instructions for Stark252: 64 widening products of a*b, 24 of m*p) plus
+// an add and a subtract, against 64 bytes of device memory per point and
+// pass.  At N = 2^22, issued at 128 instructions per clock per SM across
+// the two integer pipes, that is 0.30 ms of operations against 0.08 ms of
+// bytes per pass.
 //
 // Design (the block's work is lw_ntt_pass_block in ntt.cuh):
 //  * no transposes: the Stockham addressing reads column j's points at
@@ -41,17 +41,23 @@
 //  * Stark252's products are mont.cuh's lw_mont_mul (64-bit multiply-adds,
 //    then a carry-chain reduction with p's sparse limbs folded into a few
 //    words), its sums lw_mont_butterfly in carry-chain instructions;
-//  * BN254 Fr's and BLS12-377 Fr's p are dense: their products are dense.cuh's CIOS on four
-//    64-bit words (16 64x64-bit products for a*b and 16 for m*p, each
-//    about four 32-bit multiply-adds on this card, so about twice
-//    Stark252's product), their sums plain 64-bit adds with compare carries;
 //  * every product and sum reduces strictly, so values stay canonical and
 //    the output equals the plain version's bit for bit.
+//
+// The dense fields' pass (ntt_dense.cuh) differs where a product costs
+// most: its product is 2 x 64 32-bit multiply-add pairs in carry chains
+// (dense32.cuh) instead of CIOS on 64-bit words, about twice Stark252's;
+// one table of all N root powers (32 bytes a point read from device memory,
+// built once per root and size) gives a twist in one product and the
+// DFT's roots in none; and the caller sets the columns per block pass by
+// pass, so that the provers' 2^16-2^18-point passes run on at least a
+// wave of blocks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dense.cuh"
 #include "ntt.cuh"
+#include "ntt_dense.cuh"
 
 #define LW_NTT_THREADS 256
 #define LW_NTT_MIN_BLOCKS 2     // blocks per SM the registers must allow
@@ -127,21 +133,113 @@ extern "C" int lw_ntt_passes(const int32_t* x, int32_t* out, int32_t* buf,
                       LW_NTT_TILE_COLS_LOG, stream);
 }
 
-static_assert(LwBn254Fr::LIMBS == LW_LIMBS && LwBls12377Fr::LIMBS == LW_LIMBS,
-              "the pass kernel's tile holds 8-limb values");
+// ---------------------------------------------------------------------------
+// The dense entry: kernel 1 over BN254 Fr and BLS12-377 Fr, on its own
+// block (ntt_dense.cuh: one power table in place of the per-block twist
+// tables) and product (dense32.cuh: 32-bit limbs in carry chains), with
+// the columns per block chosen pass by pass by the caller
 
-// lw_ntt_passes over a dense field with roots of unity (dense.cuh):
-// LW_DENSE_BN254_FR (two-adicity 28) or LW_DENSE_BLS12_377_FR (47); the
-// base fields have two-adicity 0 or 1
+#define LW_DENSE_NTT_MIN_BLOCKS 2  // blocks per SM the registers must allow
+
+template <class F>
+__global__ void __launch_bounds__(LW_NTT_THREADS, LW_DENSE_NTT_MIN_BLOCKS)
+ntt_dense_pass_kernel(LwDenseNttPass P) {
+    extern __shared__ uint32_t sm[];
+    lw_dense_ntt_pass_block<F>(P, blockIdx.x, threadIdx.x, blockDim.x, sm);
+}
+
+// threads of a block of radix 2^s and 2^log_c columns: one radix-4 step
+// each, up to LW_NTT_THREADS, at least a warp
+static int lw_dense_ntt_threads(int s, int log_c) {
+    const long work = (1L << (log_c + s)) >> 2;
+    return work >= LW_NTT_THREADS ? LW_NTT_THREADS : (work < 32 ? 32 : (int)work);
+}
+
+template <class F>
+static int lw_dense_ntt_run(const int32_t* x, int32_t* out, int32_t* buf, const int32_t* pw,
+                            long rows, int log_n, int ns_log, const int* radix,
+                            const int* cols_log, int npasses, void* stream) {
+    static bool attr_set = false;
+    int total = ns_log;
+    for (int i = 0; i < npasses; i++) {
+        if (radix[i] < 1 || cols_log[i] < 0 || cols_log[i] > 10) return (int)cudaErrorInvalidValue;
+        total += radix[i];
+    }
+    if (ns_log < 0 || total > log_n || log_n > 30 || rows < 0 || (npasses > 1 && buf == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (!attr_set) {
+        cudaError_t err = cudaFuncSetAttribute(
+            ntt_dense_pass_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            LW_NTT_MAX_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        attr_set = true;
+    }
+    const int32_t* src = x;
+    for (int i = 0; i < npasses && rows > 0; i++) {
+        const int s = radix[i], lc = cols_log[i];
+        const long smem = 4 * lw_dense_ntt_smem_words(s, lc);
+        if (smem > LW_NTT_MAX_SMEM) return (int)cudaErrorInvalidValue;
+        const long cols = rows << (log_n - s);
+        const long blocks = (cols + (1L << lc) - 1) >> lc;
+        int32_t* dst = (npasses - 1 - i) % 2 == 0 ? out : buf;
+        LwDenseNttPass P = {(const uint32_t*)src, (uint32_t*)dst, (const uint32_t*)pw, rows,
+                            log_n, ns_log, s, lc};
+        ntt_dense_pass_kernel<F><<<blocks, lw_dense_ntt_threads(s, lc), smem,
+                                   (cudaStream_t)stream>>>(P);
+        cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        src = dst;
+        ns_log += s;
+    }
+    return (int)cudaGetLastError();
+}
+
+// The passes of radix 2^radix[i], each on blocks of 2^cols_log[i] columns,
+// after radices multiplying to 2^ns_log, one launch each, over (8, rows,
+// 2^log_n) limb planes of a dense field with roots of unity (dense.cuh):
+// LW_DENSE_BN254_FR (two-adicity 28) or LW_DENSE_BLS12_377_FR (47); x into
+// out through buf as lw_ntt_passes.  pw: the powers w^e, e < 2^log_n,
+// entry-major.
 extern "C" int lw_dense_ntt_passes(int field, const int32_t* x, int32_t* out, int32_t* buf,
-                                   const int32_t* t_lo, const int32_t* t_hi, long rows,
-                                   int log_n, int ns_log, const int* radix, int npasses,
+                                   const int32_t* pw, long rows, int log_n, int ns_log,
+                                   const int* radix, const int* cols_log, int npasses,
                                    void* stream) {
     if (field == LW_DENSE_BN254_FR)
-        return lw_ntt_run<LwBn254Fr>(x, out, buf, t_lo, t_hi, rows, log_n, ns_log, radix,
-                                     npasses, LW_NTT_TILE_COLS_LOG, stream);
+        return lw_dense_ntt_run<LwBn254Fr32>(x, out, buf, pw, rows, log_n, ns_log, radix,
+                                             cols_log, npasses, stream);
     if (field == LW_DENSE_BLS12_377_FR)
-        return lw_ntt_run<LwBls12377Fr>(x, out, buf, t_lo, t_hi, rows, log_n, ns_log, radix,
-                                        npasses, LW_NTT_TILE_COLS_LOG, stream);
+        return lw_dense_ntt_run<LwBls12377Fr32>(x, out, buf, pw, rows, log_n, ns_log, radix,
+                                                cols_log, npasses, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+template <class F>
+static int lw_dense_ntt_info_of(int s, int log_c, int* info) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, ntt_dense_pass_kernel<F>);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(ntt_dense_pass_kernel<F>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, LW_NTT_MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int threads = lw_dense_ntt_threads(s, log_c);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, ntt_dense_pass_kernel<F>, threads, 4 * lw_dense_ntt_smem_words(s, log_c));
+    info[0] = threads;
+    info[1] = blocks;
+    info[2] = attr.numRegs;
+    info[3] = (int)attr.localSizeBytes;
+    return (int)err;
+}
+
+// A dense pass of radix 2^s on 2^log_c columns a block: info = {threads a
+// block, blocks an SM can hold (the occupancy calculator), registers a
+// thread, local (spilled) bytes a thread}
+extern "C" int lw_dense_ntt_info(int field, int s, int log_c, int* info) {
+    if (s < 1 || log_c < 0 || 4 * lw_dense_ntt_smem_words(s, log_c) > LW_NTT_MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
+    if (field == LW_DENSE_BN254_FR) return lw_dense_ntt_info_of<LwBn254Fr32>(s, log_c, info);
+    if (field == LW_DENSE_BLS12_377_FR)
+        return lw_dense_ntt_info_of<LwBls12377Fr32>(s, log_c, info);
     return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
-// One Stockham pass of the NTT over Stark252 or BN254 Fr, as the work of one
-// thread block: the body of ntt_pass_kernel (ntt.cu).  The field is a
-// template parameter F (mul, butterfly): LwStark252 (mont.cuh, p's sparse
-// limbs in a carry-chain product) or LwBn254Fr (dense.cuh, a dense CIOS
-// product); the pass itself does not depend on it.
+// One Stockham pass of the NTT over Stark252, as the work of one thread
+// block: the body of ntt_pass_kernel (ntt.cu).  The field is a template
+// parameter F (mul, butterfly): LwStark252 (mont.cuh, p's sparse limbs in a
+// carry-chain product); the pass itself does not depend on it.  The dense
+// fields run the same pass on ntt_dense.cuh's block, which reads its root
+// powers from one table instead of building them here.
 //
 // Each loop below runs `for (idx = tid; idx < count; idx += nt)`, and no two
 // iterations of one loop touch the same shared-memory word, so the same
@@ -94,6 +95,97 @@ LW_HD void lw_ntt_tile_put(uint32_t* tile, int r, int cs, int pos, int c,
     for (int k = 0; k < LW_LIMBS; k++) tile[(k * r + pos) * cs + c] = v[k];
 }
 
+// The DFT of r = 2^s points in each of the tile's C = 2^log_c columns, from
+// bit-reversed positions, with w_r[u] = w_r^u for u < r/2 (8 limbs each):
+// radix-2 DIT stages two at a time (stages st and st + 1 on the points
+// base + {0, half, 2 half, 3 half} of a group of 4 half), then one radix-2
+// stage if s is odd.  Shared by both pass blocks (ntt_dense.cuh's too).
+template <class F>
+LW_HD void lw_ntt_tile_dft(uint32_t* tile, const uint32_t* w_r, int s, int log_c, int tid,
+                           int nt) {
+    const int r = 1 << s, C = 1 << log_c, cs = C + 1;
+    int st = 1;
+    for (; st + 1 <= s; st += 2) {
+        const int half = 1 << (st - 1);
+        for (int idx = tid; idx < (C << (s - 2)); idx += nt) {
+            const int c = idx & (C - 1), q = idx >> log_c;
+            const int jj = q & (half - 1);
+            const int base = ((q >> (st - 1)) << (st + 1)) + jj;
+            uint32_t a0[LW_LIMBS], a1[LW_LIMBS], a2[LW_LIMBS], a3[LW_LIMBS], w[LW_LIMBS];
+            lw_ntt_tile_get(tile, r, cs, base, c, a0);
+            lw_ntt_tile_get(tile, r, cs, base + half, c, a1);
+            lw_ntt_tile_get(tile, r, cs, base + 2 * half, c, a2);
+            lw_ntt_tile_get(tile, r, cs, base + 3 * half, c, a3);
+            if (st > 1) {  // stage 1 multiplies by w^0 = 1
+                lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st)), w);
+                F::mul(a1, w, a1);
+                F::mul(a3, w, a3);
+            }
+            F::butterfly(a0, a1);
+            F::butterfly(a2, a3);
+            if (st > 1) {  // stage 2 multiplies a2 by w^0 = 1
+                lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st - 1)), w);
+                F::mul(a2, w, a2);
+            }
+            lw_ntt_load(w_r + LW_LIMBS * ((jj + half) << (s - st - 1)), w);
+            F::mul(a3, w, a3);
+            F::butterfly(a0, a2);
+            F::butterfly(a1, a3);
+            lw_ntt_tile_put(tile, r, cs, base, c, a0);
+            lw_ntt_tile_put(tile, r, cs, base + half, c, a1);
+            lw_ntt_tile_put(tile, r, cs, base + 2 * half, c, a2);
+            lw_ntt_tile_put(tile, r, cs, base + 3 * half, c, a3);
+        }
+        LW_NTT_SYNC();
+    }
+    if (st == s) {  // odd s: one radix-2 stage left
+        const int half = 1 << (st - 1);
+        for (int idx = tid; idx < (C << (s - 1)); idx += nt) {
+            const int c = idx & (C - 1), q = idx >> log_c;
+            const int jj = q & (half - 1);
+            const int i0 = ((q >> (st - 1)) << st) + jj;
+            uint32_t u[LW_LIMBS], v[LW_LIMBS], w[LW_LIMBS];
+            lw_ntt_tile_get(tile, r, cs, i0, c, u);
+            lw_ntt_tile_get(tile, r, cs, i0 + half, c, v);
+            if (st > 1) {
+                lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st)), w);
+                F::mul(v, w, v);
+            }
+            F::butterfly(u, v);
+            lw_ntt_tile_put(tile, r, cs, i0, c, u);
+            lw_ntt_tile_put(tile, r, cs, i0 + half, c, v);
+        }
+        LW_NTT_SYNC();
+    }
+}
+
+// The pass's output from the tile: point k of column j = g Ns + i goes to
+// g Ns r + k Ns + i; neighbouring threads take neighbouring i (runs of
+// min(C, Ns) words), then k.  ntt_dense.cuh's block calls it with the
+// geometry it computed for its loads: (8, rows, n) planes of `plane`
+// words, 2^log_cols columns a row (cols_mask), Ns = 2^ns_log (ns_mask),
+// `total` columns in all, the block's first col0.  lw_ntt_pass_block keeps
+// its own copy of this loop: as a call, even with the same arguments,
+// ptxas allocates the Stark252 kernel's registers differently.
+LW_HD void lw_ntt_tile_scatter(uint32_t* out, const uint32_t* tile, int s, int log_c,
+                               int ns_log, int log_cols, long n, long plane, long cols_mask,
+                               long ns_mask, long total, long col0, int tid, int nt) {
+    const int r = 1 << s, C = 1 << log_c, cs = C + 1;
+    const int log_cw = log_c < ns_log ? log_c : ns_log;
+    for (int idx = tid; idx < (C << s); idx += nt) {
+        const int ii = idx & ((1 << log_cw) - 1);
+        const int k = (idx >> log_cw) & (r - 1);
+        const int c = ((idx >> (log_cw + s)) << log_cw) + ii;
+        const long J = col0 + c;
+        if (J >= total) continue;
+        const long j = J & cols_mask;
+        const long dst = (J >> log_cols) * n + ((j >> ns_log) << (ns_log + s)) + (j & ns_mask)
+                         + ((long)k << ns_log);
+#pragma unroll
+        for (int kk = 0; kk < LW_LIMBS; kk++) out[kk * plane + dst] = tile[(kk * r + k) * cs + c];
+    }
+}
+
 // F: the field (LwStark252, mont.cuh, or a dense field, dense.cuh)
 template <class F = LwStark252>
 LW_HD void lw_ntt_pass_block(const LwNttPass& P, long block, int tid, int nt,
@@ -150,61 +242,7 @@ LW_HD void lw_ntt_pass_block(const LwNttPass& P, long block, int tid, int nt,
     }
     LW_NTT_SYNC();
 
-    // radix-2 DIT stages two at a time: stages st and st + 1 on the points
-    // base + {0, half, 2 half, 3 half} of a group of 4 half
-    int st = 1;
-    for (; st + 1 <= s; st += 2) {
-        const int half = 1 << (st - 1);
-        for (int idx = tid; idx < (C << (s - 2)); idx += nt) {
-            const int c = idx & (C - 1), q = idx >> P.log_c;
-            const int jj = q & (half - 1);
-            const int base = ((q >> (st - 1)) << (st + 1)) + jj;
-            uint32_t a0[LW_LIMBS], a1[LW_LIMBS], a2[LW_LIMBS], a3[LW_LIMBS], w[LW_LIMBS];
-            lw_ntt_tile_get(tile, r, cs, base, c, a0);
-            lw_ntt_tile_get(tile, r, cs, base + half, c, a1);
-            lw_ntt_tile_get(tile, r, cs, base + 2 * half, c, a2);
-            lw_ntt_tile_get(tile, r, cs, base + 3 * half, c, a3);
-            if (st > 1) {  // stage 1 multiplies by w^0 = 1
-                lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st)), w);
-                F::mul(a1, w, a1);
-                F::mul(a3, w, a3);
-            }
-            F::butterfly(a0, a1);
-            F::butterfly(a2, a3);
-            if (st > 1) {  // stage 2 multiplies a2 by w^0 = 1
-                lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st - 1)), w);
-                F::mul(a2, w, a2);
-            }
-            lw_ntt_load(w_r + LW_LIMBS * ((jj + half) << (s - st - 1)), w);
-            F::mul(a3, w, a3);
-            F::butterfly(a0, a2);
-            F::butterfly(a1, a3);
-            lw_ntt_tile_put(tile, r, cs, base, c, a0);
-            lw_ntt_tile_put(tile, r, cs, base + half, c, a1);
-            lw_ntt_tile_put(tile, r, cs, base + 2 * half, c, a2);
-            lw_ntt_tile_put(tile, r, cs, base + 3 * half, c, a3);
-        }
-        LW_NTT_SYNC();
-    }
-    if (st == s) {  // odd s: one radix-2 stage left
-        const int half = 1 << (st - 1);
-        for (int idx = tid; idx < (C << (s - 1)); idx += nt) {
-            const int c = idx & (C - 1), q = idx >> P.log_c;
-            const int jj = q & (half - 1);
-            const int i0 = ((q >> (st - 1)) << st) + jj;
-            uint32_t u[LW_LIMBS], v[LW_LIMBS], w[LW_LIMBS];
-            lw_ntt_tile_get(tile, r, cs, i0, c, u);
-            lw_ntt_tile_get(tile, r, cs, i0 + half, c, v);
-            if (st > 1) {
-                lw_ntt_load(w_r + LW_LIMBS * (jj << (s - st)), w);
-                F::mul(v, w, v);
-            }
-            F::butterfly(u, v);
-            lw_ntt_tile_put(tile, r, cs, i0, c, u);
-            lw_ntt_tile_put(tile, r, cs, i0 + half, c, v);
-        }
-        LW_NTT_SYNC();
-    }
+    lw_ntt_tile_dft<F>(tile, w_r, s, P.log_c, tid, nt);
 
     // write point k of column j = g Ns + i to g Ns r + k Ns + i; neighbouring
     // threads take neighbouring i (runs of min(C, Ns) words), then k

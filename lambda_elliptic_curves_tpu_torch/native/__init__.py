@@ -192,7 +192,8 @@ def cuda_lib():
                 "lw_dense_field_op": [I, I, P, L, L, P, L, L, P, L, P, I, P],
                 "lw_dense_batch_inverse_plan": [I, L, P],
                 "lw_dense_batch_inverse": [I, P, P, P, L, P],
-                "lw_dense_ntt_passes": [I, P, P, P, P, P, L, I, I, P, I, P],
+                "lw_dense_ntt_passes": [I, P, P, P, P, L, I, I, P, P, I, P],
+                "lw_dense_ntt_info": [I, I, I, P],
                 "lw_curve_op": [I, I, P, P, P, P, L, P],
                 "lw_msm_bucket_accumulate": [I, I, P, P],
                 "lw_msm_bucket_reduce": [I, P, P],

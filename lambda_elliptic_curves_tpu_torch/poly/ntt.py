@@ -26,8 +26,11 @@ BabyBear), all passes of a transform from one call of its C entry; on a
 CPU tensor it is :func:`ntt_pass_plain`, the same pass in torch ops over
 the field's plain arithmetic.  Root powers come from two tables of about
 2^(L/2) entries per (root, L) (:func:`twiddle_tables`): w^e =
-T_hi[e >> h] * T_lo[e mod 2^h].  All outputs are canonical Montgomery
-limbs.
+T_hi[e >> h] * T_lo[e mod 2^h]; over BN254 Fr and BLS12-377 Fr the
+kernel reads them from one table of all 2^L powers built from those two
+(:func:`power_rows`), and runs :func:`dense_pass_plan`'s passes on
+:func:`dense_cols_log` columns a block.  All outputs are canonical
+Montgomery limbs.
 """
 
 from __future__ import annotations
@@ -51,6 +54,19 @@ from .. import native
 #: 2^8 faster at 2^22 than 2^7 (four passes) at any tile width, and 4
 #: columns per block within 1% of 8; 8 were kept for their 32-byte runs
 MAX_PASS_LOG = 8
+
+#: the dense fields' passes (``csrc/ntt_dense.cuh``): radix at most 2^7
+#: (:func:`dense_pass_plan`: [6, 5, 5] at 2^16, [6, 6, 6] at 2^18, [6, 6, 5,
+#: 5] at 2^22), and the columns a block takes set pass by pass
+#: (:func:`dense_cols_log`): at most 2^3 (32-byte runs of every limb
+#: plane), fewer when the pass would otherwise run on fewer than
+#: ``DENSE_BLOCKS_PER_SM`` blocks for each SM of the card.  The sweep
+#: (``tools/sweep_ntt.py --dense``) found radix 2^6 passes on this rule
+#: best or within its noise at 2^16-2^18 (one row, and the QAP's three) and
+#: 5% faster than [8, 7, 7] at 2^22
+DENSE_MAX_PASS_LOG = 7
+DENSE_MAX_COLS_LOG = 3
+DENSE_BLOCKS_PER_SM = 2
 
 
 # ---------------------------------------------------------------------------
@@ -144,17 +160,29 @@ class Twiddles(NamedTuple):
     product); ``lo_rows`` / ``hi_rows`` are the same tables entry-major,
     one run per entry, as the kernel reads them.  ``ops``: the field's
     arithmetic (:mod:`..ops.limbs`, or an :class:`..ops.small.SmallField`
-    whose tables have its limb count in place of 8)."""
+    whose tables have its limb count in place of 8).  ``powers``: for a
+    dense field on the card, every root^e, e < 2^L, entry-major ``(2^L,
+    8)`` (:func:`power_rows`), which the dense pass kernel reads; else
+    None."""
     lo: torch.Tensor
     hi: torch.Tensor
     lo_rows: torch.Tensor
     hi_rows: torch.Tensor
     ops: object
+    powers: torch.Tensor | None = None
+
+
+def _dense_ntt(ops) -> bool:
+    """Whether ``ops`` is a dense field, whose passes run on kernel 1's
+    dense entry (BN254 Fr and BLS12-377 Fr: the others have no roots)."""
+    return isinstance(ops, dense.DenseField)
 
 
 def twiddle_tables(field: PrimeField, root_int: int, log_n: int, device) -> Twiddles:
     """:class:`Twiddles` of ``root_int`` for 2^log_n points, built on the
-    host with Python ints (no launch); cached per (root, log_n, device)."""
+    host with Python ints; over a dense field on the card also ``powers``
+    (:func:`power_rows`: one launch of kernel 8).  Cached per (root, log_n,
+    device)."""
     key = (field, root_int % field.p, log_n, str(device))
     hit = _table_cache.get(key)
     if hit is not None:
@@ -172,8 +200,23 @@ def twiddle_tables(field: PrimeField, root_int: int, log_n: int, device) -> Twid
     lo, hi = run(root_int % p, 1 << h), run(pow(root_int, 1 << h, p), 1 << (log_n - h))
     tabs = Twiddles(*(torch.from_numpy(np.ascontiguousarray(t)).to(device)
                       for t in (lo, hi, lo.T, hi.T)), field.ops)
+    if _dense_ntt(field.ops) and tabs.lo.device.type != "cpu":
+        tabs = tabs._replace(powers=power_rows(tabs))
     _table_cache[key] = tabs
     return tabs
+
+
+def power_rows(tables: Twiddles) -> torch.Tensor:
+    """root^e for every e < 2^L, entry-major ``(2^L, 8)``: one product of
+    the two tables' entries each, on the tables' device (one launch of
+    kernel 8 on the card, the plain product on the CPU); the table that the
+    dense pass kernel reads its twists and DFT roots from."""
+    if tables.powers is not None:
+        return tables.powers
+    lo, hi = tables.lo, tables.hi
+    h = lo.shape[1].bit_length() - 1
+    e = torch.arange(lo.shape[1] * hi.shape[1], device=lo.device)
+    return tables.ops.mont_mul(hi[:, e >> h], lo[:, e & ((1 << h) - 1)]).T.contiguous()
 
 
 def twiddle_plain(tables: Twiddles, e: torch.Tensor) -> torch.Tensor:
@@ -199,6 +242,29 @@ def pass_plan(log_n: int, max_pass_log: int = MAX_PASS_LOG) -> list:
     count = -(-log_n // max_pass_log)
     base, extra = divmod(log_n, count)
     return [base + 1] * extra + [base] * (count - extra)
+
+
+def dense_pass_plan(log_n: int, max_pass_log: int = MAX_PASS_LOG) -> list:
+    """The passes of a dense field's 2^log_n transform: :func:`pass_plan`
+    with the radix at most 2^``DENSE_MAX_PASS_LOG``."""
+    return pass_plan(log_n, min(max_pass_log, DENSE_MAX_PASS_LOG))
+
+
+def dense_cols_log(rows: int, log_n: int, s: int, sms: int) -> int:
+    """log2 of the columns a block of a dense pass takes (radix 2^s over
+    ``rows`` rows of 2^log_n points) on a card of ``sms`` multiprocessors:
+    ``DENSE_MAX_COLS_LOG``, less while the pass would have fewer than
+    ``DENSE_BLOCKS_PER_SM`` blocks an SM."""
+    cols, lc = rows << (log_n - s), DENSE_MAX_COLS_LOG
+    while lc > 0 and (cols >> lc) < DENSE_BLOCKS_PER_SM * sms:
+        lc -= 1
+    return lc
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _twist_split(s: int) -> int:
@@ -257,7 +323,8 @@ def _check_operands(x: torch.Tensor, out: torch.Tensor, tables: Twiddles, ns_log
     n = x.shape[2]
     if (n & (n - 1) or ns_log < 0 or min(plan) < 1 or ns_log + sum(plan) > n.bit_length() - 1
             or tables.lo.shape[1] * tables.hi.shape[1] != n
-            or tables.lo_rows.device != x.device):
+            or tables.lo_rows.device != x.device
+            or (_dense_ntt(tables.ops) and tables.powers is None)):
         raise ValueError(f"NTT pass: bad passes {plan} after 2^{ns_log}, or tables, for N={n}")
 
 
@@ -265,14 +332,17 @@ def _launch(x: torch.Tensor, out: torch.Tensor, buf, tables: Twiddles, ns_log: i
             plan: list) -> torch.Tensor:
     """The passes ``plan`` in one call of the C entry, one kernel launch
     each, x into out (through buf when there are two or more): kernel 1
-    for Stark252 and (its dense instantiations) BN254 Fr and BLS12-377 Fr,
+    for Stark252 and (its dense entry, each pass on
+    :func:`dense_cols_log` columns a block) BN254 Fr and BLS12-377 Fr,
     kernel 7 for the small fields."""
-    if x.shape[1] and isinstance(tables.ops, dense.DenseField):
+    if x.shape[1] and _dense_ntt(tables.ops):
+        log_n, sms = x.shape[2].bit_length() - 1, sm_count(x.device)
+        cols_log = [dense_cols_log(x.shape[1], log_n, s, sms) for s in plan]
         native.launch(tables.ops.ntt_counter, "lw_dense_ntt_passes", tables.ops.kernel_id,
                       x.data_ptr(), out.data_ptr(), None if buf is None else buf.data_ptr(),
-                      tables.lo_rows.data_ptr(), tables.hi_rows.data_ptr(), x.shape[1],
-                      x.shape[2].bit_length() - 1, ns_log, (ctypes.c_int * len(plan))(*plan),
-                      len(plan), count=len(plan))
+                      tables.powers.data_ptr(), x.shape[1], log_n, ns_log,
+                      (ctypes.c_int * len(plan))(*plan),
+                      (ctypes.c_int * len(plan))(*cols_log), len(plan), count=len(plan))
     elif x.shape[1] and tables.ops is not limbs:
         native.launch("small_ntt", "lw_small_ntt_passes", tables.ops.kernel_id,
                       x.data_ptr(), out.data_ptr(), None if buf is None else buf.data_ptr(),
@@ -305,7 +375,7 @@ def _transform(x: torch.Tensor, field: PrimeField, root_int: int, max_pass_log: 
                on_card: bool) -> torch.Tensor:
     n = x.shape[-1]
     log_n = n.bit_length() - 1
-    plan = pass_plan(log_n, max_pass_log)
+    plan = (dense_pass_plan if _dense_ntt(field.ops) else pass_plan)(log_n, max_pass_log)
     if not plan:
         return x.clone()
     tables = twiddle_tables(field, root_int, log_n, x.device)
@@ -327,8 +397,9 @@ def fft_with_root(x: torch.Tensor, field: PrimeField, root_int: int,
                   max_pass_log: int = MAX_PASS_LOG) -> torch.Tensor:
     """Natural-order transform along the last axis with an explicit
     primitive root (any power-of-two length, any batch dims): the passes of
-    :func:`pass_plan`, each one kernel launch on a CUDA tensor and
-    :func:`ntt_pass_plain` on a CPU tensor."""
+    :func:`pass_plan` (:func:`dense_pass_plan` over a dense field), each
+    one kernel launch on a CUDA tensor and :func:`ntt_pass_plain` on a CPU
+    tensor."""
     return _transform(x, field, root_int, max_pass_log, x.device.type != "cpu")
 
 

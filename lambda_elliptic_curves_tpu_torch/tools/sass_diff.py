@@ -1,7 +1,8 @@
 """Compare the machine code (SASS) of the CUDA kernels of two checkouts of
 the port: each source (default ``ntt.cu``, ``dense_field.cu``,
 ``batch_inverse.cu``, ``field.cu``) of each checkout is compiled to a cubin
-with the port's own ``nvcc`` flags, ``cuobjdump -sass`` lists its kernels,
+with the port's own ``nvcc`` flags (every compile at once), ``cuobjdump
+-sass`` lists its kernels,
 and every kernel that both checkouts have is compared instruction by
 instruction (addresses, encodings and branch targets left out).  A kernel
 name's parameter types are normalised so that a type that became a template
@@ -42,12 +43,18 @@ def _normalise(name: str) -> str:
     return re.sub(r"LwDnExponentI.*?EE(?=i$)", "LwDnExponent", name)
 
 
-def kernels_sass(tree: str, source: str, out_dir: str, tag: str) -> dict:
-    """Kernel name -> its instructions, for ``source`` in ``tree``."""
+def compile_cubin(tree: str, source: str, out_dir: str, tag: str):
+    """(cubin path, the running ``nvcc`` that writes it) for ``source`` in
+    ``tree``."""
     src = os.path.join(tree, "lambda_elliptic_curves_tpu_torch", "csrc", source)
     cubin = os.path.join(out_dir, f"sass_{source}_{tag}.cubin")
-    subprocess.run([_tool("nvcc"), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-o", cubin, src], check=True)
+    return cubin, subprocess.Popen([_tool("nvcc"), "-cubin", "-gencode",
+                                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-o",
+                                    cubin, src])
+
+
+def kernels_sass(cubin: str) -> dict:
+    """Kernel name -> its instructions, for a compiled cubin."""
     text = subprocess.run([_tool("cuobjdump"), "-sass", cubin], check=True,
                           capture_output=True, text=True).stdout
     out = {}
@@ -74,9 +81,15 @@ def main() -> int:
     os.makedirs(native.BUILD_DIR, exist_ok=True)
     report = {"tree": os.path.abspath(args.tree), "against": os.path.abspath(args.against),
               "kernels": {}, "only_tree": [], "only_against": []}
+    jobs = {(source, tag): compile_cubin(tree, source, native.BUILD_DIR, tag)
+            for source in args.sources for tag, tree in (("tree", args.tree),
+                                                         ("against", args.against))}
+    for (source, tag), (_, proc) in jobs.items():
+        if proc.wait() != 0:
+            raise SystemExit(f"nvcc failed on {source} ({tag})")
     for source in args.sources:
-        a = kernels_sass(args.tree, source, native.BUILD_DIR, "tree")
-        b = kernels_sass(args.against, source, native.BUILD_DIR, "against")
+        a = kernels_sass(jobs[(source, "tree")][0])
+        b = kernels_sass(jobs[(source, "against")][0])
         for name in sorted(set(a) & set(b)):
             diff = [(i, x, y) for i, (x, y) in enumerate(zip(a[name], b[name])) if x != y]
             report["kernels"][f"{source}:{name}"] = {

@@ -3,7 +3,7 @@ the largest radix of a pass, 2^s (``max_pass_log``), and the columns a
 block takes, 2^c.  ``poly/ntt.py``'s ``MAX_PASS_LOG`` and ``csrc/ntt.cu``'s
 ``LW_NTT_TILE_COLS_LOG`` come from this sweep.
 
-    python3 -m lambda_elliptic_curves_tpu_torch.tools.sweep_ntt
+    python3 -m lambda_elliptic_curves_tpu_torch.tools.sweep_ntt [--dense]
 
 The passes run through a launch entry that this script builds with
 ``nvcc`` from ``csrc/ntt.cu`` (the port's entry fixes c; this one takes
@@ -16,6 +16,14 @@ port's ``fft`` is timed beside them.  Prints the card's name and power
 limit, the kernel's resource line from ``nvcc -Xptxas -v`` (when this
 process built the port's library), one JSON line per pair, and as the
 last line a JSON object with every pair and the fastest pair per size.
+
+With ``--dense`` it sweeps kernel 1's dense entry instead (BN254 Fr at one
+row, BLS12-377 Fr at the QAP's three rows, at the provers' sizes and at
+2^22): the largest radix (2^4 .. 2^9) and the columns a block takes, a
+fixed 2^0 .. 2^3 or the port's rule (``ntt.dense_cols_log``), through the
+port's own entry ``lw_dense_ntt_passes`` (which takes the columns pass by
+pass); each output first held bitwise against the plain fft on the card,
+each pass's grid beside its time.
 """
 
 from __future__ import annotations
@@ -84,6 +92,72 @@ def _fft_with(fn, x, tables, plan, cols_log):
     return out
 
 
+#: the dense sweep's shapes: (field, log2 N, rows)
+DENSE_SHAPES = (("bn254_fr", 16, 1), ("bn254_fr", 17, 1), ("bn254_fr", 18, 1),
+                ("bn254_fr", 22, 1), ("bls12_377_fr", 16, 3), ("bls12_377_fr", 17, 3))
+DENSE_PASS_LOGS = (4, 5, 6, 7, 8, 9)
+DENSE_COLS = ("rule", 0, 1, 2, 3)
+
+
+def _dense_fft(x, tables, plan, cols_log):
+    import torch
+
+    out, buf = torch.empty_like(x), torch.empty_like(x)
+    err = native.cuda_lib().lw_dense_ntt_passes(
+        tables.ops.kernel_id, x.data_ptr(), out.data_ptr(), buf.data_ptr(),
+        tables.powers.data_ptr(), x.shape[1], x.shape[2].bit_length() - 1, 0,
+        (ctypes.c_int * len(plan))(*plan), (ctypes.c_int * len(plan))(*cols_log), len(plan),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"lw_dense_ntt_passes: CUDA error {err}")
+    return out
+
+
+def main_dense(card: str) -> int:
+    import torch
+
+    from .. import fields
+    from ..poly import ntt
+
+    by_name = {"bn254_fr": fields.BN254Fr, "bls12_377_fr": fields.BLS12377Fr}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = []
+    for name, log_n, rows in DENSE_SHAPES:
+        f = by_name[name]
+        n = 1 << log_n
+        x = random_field((rows, n), gen)  # below 2^251 < p
+        root = f.params.primitive_root_of_unity(log_n)
+        tables = ntt.twiddle_tables(f, root, log_n, x.device)
+        want = ntt.fft_with_root_plain(x, f, root)
+        reps = 20 if log_n < 22 else 10
+        for s in DENSE_PASS_LOGS:
+            plan = ntt.pass_plan(log_n, s)
+            for cols in DENSE_COLS:
+                cols_log = [ntt.dense_cols_log(rows, log_n, r, ntt.sm_count(x.device))
+                            if cols == "rule" else cols for r in plan]
+                if max(4 * 8 * ((1 << r) * ((1 << c) + 1) + (1 << r) // 2)
+                       for r, c in zip(plan, cols_log)) > SMEM_BYTES:
+                    continue
+                if not torch.equal(_dense_fft(x, tables, plan, cols_log), want):
+                    print(f"sweep_ntt: {name} 2^{log_n} x {rows} s<={s} C={cols} != plain",
+                          file=sys.stderr)
+                    return 1
+                ms = cuda_ms(lambda: _dense_fft(x, tables, plan, cols_log), reps)
+                rec = {"field": name, "log_n": log_n, "rows": rows, "max_pass_log": s,
+                       "cols": cols, "passes": plan, "cols_log": cols_log,
+                       "blocks": [-(-(rows << (log_n - r)) >> c) for r, c in zip(plan, cols_log)],
+                       "ms": ms}
+                results.append(rec)
+                print(json.dumps(rec), flush=True)
+        del x, want
+        torch.cuda.empty_cache()
+    best = {f"{k[0]} 2^{k[1]} x {k[2]}": min(
+        (r for r in results if (r["field"], r["log_n"], r["rows"]) == k), key=lambda r: r["ms"])
+        for k in DENSE_SHAPES}
+    print(json.dumps({"card": card, "results": results, "fastest": best}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -95,6 +169,8 @@ def main() -> int:
         return 2
     card = smi("name,power.limit")
     print(card, flush=True)
+    if "--dense" in sys.argv[1:]:
+        return main_dense(card)
     native.cuda_lib()
     ptxas = " | ".join(line.strip() for line in native.build_log.get("ntt.cu", "").splitlines()
                        if "registers" in line or "spill" in line)

@@ -40,7 +40,17 @@ otherwise.  The groups, run in this order whatever order they are given in
   kernel 11's device ms and launches, the device busy ms and the wall ms;
 * ``plonk``: a Plonk prove over BN254 of a 2^16-gate chain (SRS of n + 6
   points at tau 7913), a first and a warm one under ``torch.profiler``:
-  kernel 11's device ms and launches, busy and wall ms (about a minute).
+  kernel 11's device ms and launches, busy and wall ms (about a minute);
+* ``dense_fft``: kernel 1 over the dense fields (``ntt.fft`` over
+  ``fields.BN254Fr`` and ``fields.BLS12377Fr``): fft over BN254 Fr at 2^16,
+  2^18 and 2^22 points, over BLS12-377 Fr at 2^16 x 3 rows, 2^17 x 3 rows,
+  2^17 and 2^22, each after its tables are built, whole calls and the
+  passes' launches alone (``ntt._launch`` on buffers allocated once: up
+  to 2^18 a call's host work outlasts its kernels); then a warm Plonk prove
+  at 2^16 gates (as ``plonk``) and a warm Groth16 prove at 2^16
+  constraints (as ``bucket``) under ``torch.profiler``: kernel 1's device
+  ms and traced launches, its launch count (``native.launches``), busy and
+  wall ms (about two minutes).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -58,7 +68,7 @@ if __package__:
 else:  # run as a script: this file's folder heads sys.path, whatever DIR holds
     from _timing import cache_bytes, cuda_ms, profile, random_field, smi
 
-GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk")
+GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk", "dense_fft")
 
 
 class Failed(Exception):
@@ -200,17 +210,10 @@ def main() -> int:
                 "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
 
     def run_bucket():
-        import random
-
         import numpy as np
-        from lambda_elliptic_curves_tpu_torch import fields
         from lambda_elliptic_curves_tpu_torch.curves import msm as M
-        from lambda_elliptic_curves_tpu_torch.curves.pairings import BLS12377Pairing
         from lambda_elliptic_curves_tpu_torch.curves.twists import bls12_377_twist
         from lambda_elliptic_curves_tpu_torch.curves.zoo import BLS12377Curve, BN254Curve
-        from lambda_elliptic_curves_tpu_torch.provers.groth16 import (
-            QuadraticArithmeticProgram, circuits, prove as g16_prove, setup as g16_setup,
-        )
 
         n, c = 1 << 16, 15
         for name, curve in (("bn254_g1", BN254Curve), ("bls12_377_g1", BLS12377Curve),
@@ -239,17 +242,10 @@ def main() -> int:
                 "launches": launches}
             del pts, table
             torch.cuda.empty_cache()
-        cfg, m, fr = BLS12377Pairing, 1 << 16, fields.BLS12377Fr
-        qap = QuadraticArithmeticProgram.from_r1cs(fr, circuits.chain_r1cs(m))
-        witness = circuits.chain_witness(m, 3, 5, fr.p)
-        pk, _ = g16_setup(qap, cfg, random.Random(9), device=dev)
-        g16_prove(witness, qap, pk, cfg, random.Random(10), device=dev)
-        torch.cuda.synchronize()
-        _, stats = profile(lambda: g16_prove(witness, qap, pk, cfg, random.Random(11),
-                                             device=dev), top=40)
+        _, stats = profile(groth16_prover(), top=40)
         rec["groth16_2^16_warm"] = kernel_11(stats)
 
-    def run_plonk():
+    def plonk_prover():
         import random
 
         from lambda_elliptic_curves_tpu_torch import fields
@@ -279,11 +275,69 @@ def main() -> int:
         prover = Prover(kzg, RandomFieldGenerator(fr, random.Random(1)))
         prover.prove(witness, public, cpi, vk)
         torch.cuda.synchronize()
-        _, stats = profile(lambda: prover.prove(witness, public, cpi, vk), top=40)
+        return lambda: prover.prove(witness, public, cpi, vk)
+
+    def groth16_prover():
+        import random
+
+        from lambda_elliptic_curves_tpu_torch import fields
+        from lambda_elliptic_curves_tpu_torch.curves.pairings import BLS12377Pairing
+        from lambda_elliptic_curves_tpu_torch.provers.groth16 import (
+            QuadraticArithmeticProgram, circuits, prove as g16_prove, setup as g16_setup,
+        )
+
+        cfg, m, fr = BLS12377Pairing, 1 << 16, fields.BLS12377Fr
+        qap = QuadraticArithmeticProgram.from_r1cs(fr, circuits.chain_r1cs(m))
+        witness = circuits.chain_witness(m, 3, 5, fr.p)
+        pk, _ = g16_setup(qap, cfg, random.Random(9), device=dev)
+        g16_prove(witness, qap, pk, cfg, random.Random(10), device=dev)
+        torch.cuda.synchronize()
+        return lambda: g16_prove(witness, qap, pk, cfg, random.Random(11), device=dev)
+
+    def run_plonk():
+        _, stats = profile(plonk_prover(), top=40)
         rec["plonk_2^16_warm"] = kernel_11(stats)
 
+    def run_dense_fft():
+        from lambda_elliptic_curves_tpu_torch import fields
+
+        shapes = [(fields.BN254Fr, 16, 1), (fields.BN254Fr, 18, 1), (fields.BN254Fr, 22, 1),
+                  (fields.BLS12377Fr, 16, 3), (fields.BLS12377Fr, 17, 3),
+                  (fields.BLS12377Fr, 17, 1), (fields.BLS12377Fr, 22, 1)]
+        # the plan the tree's fft runs (a tree before the dense plan: pass_plan)
+        plan_of = getattr(ntt, "dense_pass_plan", ntt.pass_plan)
+        for fr, log_n, rows in shapes:
+            x = random_field((rows, 1 << log_n), gen)  # below 2^251 < p
+            reps = 20 if log_n < 22 else 10
+            key = f"{fr.name} fft 2^{log_n} x {rows}"
+            rec[key + " ms"] = cuda_ms(lambda: ntt.fft(x, fr), reps)
+            # the passes' launches alone, on buffers allocated once
+            tables = ntt.twiddle_tables(fr, fr.params.primitive_root_of_unity(log_n), log_n,
+                                        dev)
+            out, buf = torch.empty_like(x), torch.empty_like(x)
+            rec[key + " passes"] = plan_of(log_n)
+            rec[key + " kernels ms"] = cuda_ms(lambda: ntt._launch(
+                x, out, buf, tables, 0, plan_of(log_n)), reps)
+            del x, out, buf
+            torch.cuda.empty_cache()
+        for name, counter, make in (("plonk_2^16_warm", "dense_ntt", plonk_prover),
+                                    ("groth16_2^16_warm", "dense_ntt_bls12_377",
+                                     groth16_prover)):
+            prove_once = make()
+            for k in native.launches:
+                native.launches[k] = 0
+            _, stats = profile(prove_once, top=60)
+            k1 = [v for k, v in stats["by_kernel"].items() if "ntt" in k and "pass_kernel" in k]
+            rec[name + "_kernel_1"] = {
+                "kernel_1_device_ms": sum(v["ms"] for v in k1),
+                "kernel_1_traced_launches": sum(v["launches"] for v in k1),
+                "kernel_1_launches": native.launches[counter],
+                "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
+            del prove_once
+            torch.cuda.empty_cache()
+
     runs = {"prove": run_prove, "fft": run_fft, "field": run_field, "inverse": run_inverse,
-            "bucket": run_bucket, "plonk": run_plonk}
+            "bucket": run_bucket, "plonk": run_plonk, "dense_fft": run_dense_fft}
     try:
         for group in GROUPS:
             if group in groups:

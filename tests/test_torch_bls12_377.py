@@ -11,10 +11,12 @@ against Python ints, the port's host arithmetic and the JAX package.
   (``jax_bls12_377_fft.json``) and the Pallas kernel in interpret mode at
   (2, 256) and (1, 1024) (``jax_bls12_377_pallas.json``);
 * ``csrc/dense.cuh``'s 6-word and 4-word products, sums, inversion and
-  power, ``ntt.cuh``'s pass block over BLS12-377 Fr and
+  power, ``dense32.cuh``'s product and butterfly at 12 and 8 limbs,
+  ``ntt_dense.cuh``'s pass block over BLS12-377 Fr and
   ``batch_inverse.cuh``'s levels at 12 and 8 limbs, built with ``g++``
-  (plain C++: the host build runs what the card runs) and held against
-  Python ints and the plain versions; they skip without ``g++``;
+  (plain C++, or ``mont.cuh``'s emulated carry flag for ``dense32.cuh``)
+  and held against Python ints and the plain versions; they skip without
+  ``g++``;
 * G2's ``TwistJacobianOps`` against the host affine arithmetic, the comb
   against host scalar multiplications, the G1 Pippenger MSM against the
   JAX device MSM at 128 points (``jax_bls12_377_curves.json``), the G2
@@ -52,6 +54,8 @@ torch.set_num_threads(1)
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 FIELDS = {"fr": BLS12377Fr, "fq": BLS12377Field}
+#: an H100's multiprocessors: the card the dense passes' grids are sized for
+H100_SMS = 132
 
 
 def _fixture(name):
@@ -161,10 +165,10 @@ def test_wrappers_refuse_cpu_tensors_for_the_kernels():
 _HOST_SRC = """
 #include <vector>
 #include "dense.cuh"
-#include "ntt.cuh"
+#include "ntt_dense.cuh"
 #include "batch_inverse.cuh"
 
-template <class F>
+template <class Q, class F = LwDense<Q>>
 static void elementwise(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, long n,
                         const uint32_t* e, int nbits) {
     const int L = F::LIMBS;
@@ -174,25 +178,33 @@ static void elementwise(int op, const uint32_t* a, const uint32_t* b, uint32_t* 
         else if (op == 2) F::sub(a + L * i, b + L * i, r + L * i);
         else if (op == 3) F::neg(a + L * i, r + L * i);
         else if (op == 4) F::inv(a + L * i, r + L * i);
-        else F::pow(a + L * i, e, nbits, r + L * i);
+        else if (op == 5) F::pow(a + L * i, e, nbits, r + L * i);
+        else if (op == 6) lw_d32_mul<Q>(a + L * i, b + L * i, r + L * i);
+        else {  // 7, 8: dense32.cuh's butterfly, u + v and u - v
+            uint32_t u[12], v[12];
+            for (int k = 0; k < L; k++) u[k] = a[L * i + k], v[k] = b[L * i + k];
+            lw_d32_butterfly<Q>(u, v);
+            for (int k = 0; k < L; k++) r[L * i + k] = op == 7 ? u[k] : v[k];
+        }
     }
 }
 
 extern "C" void dense_op(int field, int op, const uint32_t* a, const uint32_t* b, uint32_t* r,
                          long n, const uint32_t* e, int nbits) {
-    if (field == LW_DENSE_BLS12_377_FR) elementwise<LwBls12377Fr>(op, a, b, r, n, e, nbits);
-    else elementwise<LwBls12377Fq>(op, a, b, r, n, e, nbits);
+    if (field == LW_DENSE_BLS12_377_FR)
+        elementwise<LwBls12377FrParams>(op, a, b, r, n, e, nbits);
+    else elementwise<LwBls12377FqParams>(op, a, b, r, n, e, nbits);
 }
 
-extern "C" void ntt_pass(const int32_t* x, int32_t* out, const int32_t* t_lo,
-                         const int32_t* t_hi, long rows, int log_n, int ns_log, int s,
-                         int log_c) {
-    LwNttPass P = {(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)t_lo,
-                   (const uint32_t*)t_hi, rows, log_n, ns_log, s, log_c};
-    std::vector<uint32_t> sm(lw_ntt_pass_smem_words(s, log_c), 0xA5A5A5A5u);
+// kernel 1's dense pass, block by block with tid = 0, nt = 1
+extern "C" void ntt_pass(const int32_t* x, int32_t* out, const int32_t* pw, long rows,
+                         int log_n, int ns_log, int s, int log_c) {
+    LwDenseNttPass P = {(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)pw, rows, log_n,
+                        ns_log, s, log_c};
+    std::vector<uint32_t> sm(lw_dense_ntt_smem_words(s, log_c), 0xA5A5A5A5u);
     long cols = rows << (log_n - s);
     for (long b = 0; b < (cols + (1L << log_c) - 1) >> log_c; b++)
-        lw_ntt_pass_block<LwBls12377Fr>(P, b, 0, 1, sm.data());
+        lw_dense_ntt_pass_block<LwBls12377Fr32>(P, b, 0, 1, sm.data());
 }
 
 template <class F>
@@ -233,7 +245,7 @@ def host(tmp_path_factory):
     P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     lib.dense_op.argtypes = [I, I, P, P, P, L, P, I]
     lib.dense_op.restype = None
-    lib.ntt_pass.argtypes = [P, P, P, P, L, I, I, I, I]
+    lib.ntt_pass.argtypes = [P, P, P, L, I, I, I, I]
     lib.ntt_pass.restype = None
     lib.batch_inverse.argtypes = [I, P, P, L, I, I]
     lib.batch_inverse.restype = I
@@ -252,15 +264,24 @@ def _ints_of(words):
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_host_dense_ops_equal_python_ints(host, name):
     """dense.cuh's product (CIOS on 6 words for Fq, 4 for Fr), sum,
-    difference, negation, inversion and power on Montgomery values
-    (x R mod p) against Python ints."""
+    difference, negation, inversion and power, and dense32.cuh's product
+    and its butterfly, on Montgomery values (x R mod p)
+    against Python ints, random and the edge values each against each (0,
+    1, p - 1, p - 2, R mod p, 2^k - 1, 2^k - 2 mod p for k the bit length
+    of p, one less, and 32 L - 2)."""
     f = FIELDS[name]
     p, kid, L = f.p, f.ops.kernel_id, f.num_limbs
     R = 1 << (32 * L)
+    rinv, k = pow(R, -1, p), p.bit_length()
+    edge = [v * rinv % p for v in [0, 1, p - 1, p - 2, R % p] + [
+        ((1 << j) - d) % p for j in (k, k - 1, 32 * L - 2) for d in (1, 2)]]
     a, b = _vals(p, 500, 6), _vals(p, 500, 7)[::-1]
     b[5] = a[5]  # a square
+    a += [u for u in edge for _ in edge]
+    b += [v for _ in edge for v in edge]
+    n = len(a)
     wa, wb = _words([v * R % p for v in a], L), _words([v * R % p for v in b], L)
-    out = np.zeros((500, L), np.uint32)
+    out = np.zeros((n, L), np.uint32)
     e = 2**370 + 12345 if name == "fq" else 2**250 + 777
     ew = np.array([(e >> (32 * k)) & 0xFFFFFFFF for k in range(12)], np.uint32)
     want = {
@@ -271,8 +292,10 @@ def test_host_dense_ops_equal_python_ints(host, name):
         4: [pow(u, -1, p) * R % p if u else 0 for u in a],
         5: [pow(u, e, p) * R % p for u in a],
     }
+    want[6] = want[0]
+    want[7], want[8] = want[1], want[2]
     for op, expect in want.items():
-        host.dense_op(kid, op, wa.ctypes.data, wb.ctypes.data, out.ctypes.data, 500,
+        host.dense_op(kid, op, wa.ctypes.data, wb.ctypes.data, out.ctypes.data, n,
                       ew.ctypes.data, e.bit_length())
         assert _ints_of(out) == expect, op
 
@@ -295,29 +318,38 @@ def test_host_fq_product_equals_plain_version(host):
 def _host_pass(lib, x, tables, ns_log, s, log_c):
     xn = np.ascontiguousarray(x.numpy())
     out = np.full_like(xn, 0x5A5A5A5A)  # the block must write every point
-    lo, hi = tables.lo_rows.numpy(), tables.hi_rows.numpy()
-    lib.ntt_pass(xn.ctypes.data, out.ctypes.data, lo.ctypes.data, hi.ctypes.data,
-                 x.shape[1], x.shape[2].bit_length() - 1, ns_log, s, log_c)
+    pw = np.ascontiguousarray(ntt.power_rows(tables).numpy())
+    lib.ntt_pass(xn.ctypes.data, out.ctypes.data, pw.ctypes.data, x.shape[1],
+                 x.shape[2].bit_length() - 1, ns_log, s, log_c)
     return torch.from_numpy(out)
 
 
-@pytest.mark.parametrize("log_n", [1, 3, 6, 9, 10])
+@pytest.mark.parametrize("log_n", [1, 3, 6, 9, 10, 2, 4, 5, 7, 8, 11, 12])
 def test_host_ntt_pass_block_equals_plain(host, log_n):
-    """Kernel 1's block over BLS12-377 Fr, pass by pass, against
-    ntt_pass_plain, at several radices and tile widths."""
-    f, rows = BLS12377Fr, 2
-    vals = np.array(_vals(f.p, rows << log_n, log_n) if log_n > 1 else [0, 1, 5, 7],
-                    dtype=object)
-    x = f.array(vals.reshape(rows, 1 << log_n), "cpu")
-    root = f.params.primitive_root_of_unity(log_n)
-    tables = ntt.twiddle_tables(f, root, log_n, "cpu")
-    for max_pass_log, log_c in ((1, 4), (3, 0), (8, 3)):
-        cur, ns_log = x, 0
-        for s in ntt.pass_plan(log_n, max_pass_log):
-            got = _host_pass(host, cur, tables, ns_log, s, log_c)
-            assert torch.equal(got, ntt.ntt_pass_plain(cur, tables, ns_log, s))
-            cur, ns_log = got, ns_log + s
-        assert torch.equal(cur, ntt.fft_with_root(x, f, root, max_pass_log))
+    """Kernel 1's dense block over BLS12-377 Fr (``ntt_dense.cuh``), pass by
+    pass, against ntt_pass_plain: 1-3 rows (3: the QAP's; one row above
+    2^10), both roots, the fft's plan and max_pass_log 3 (and 1 up to
+    2^10), each at the port's columns per block on an H100 and at 2^0 and
+    2^3 (2^4 at the one-stage plan); the last output against the plain
+    fft."""
+    f = BLS12377Fr
+    for rows in (1, 2, 3)[:3 if log_n <= 10 else 1]:
+        vals = np.array(_vals(f.p, rows << log_n, log_n) if rows << log_n >= 4
+                        else [5, 7][:rows << log_n], dtype=object)
+        x = f.array(vals.reshape(rows, 1 << log_n), "cpu")
+        w = f.params.primitive_root_of_unity(log_n)
+        for root in (w, pow(w, f.p - 2, f.p)):
+            tables = ntt.twiddle_tables(f, root, log_n, "cpu")
+            for max_pass_log in (ntt.MAX_PASS_LOG, 3, 1)[:3 if log_n <= 10 else 2]:
+                cur, ns_log = x, 0
+                for s in ntt.dense_pass_plan(log_n, max_pass_log):
+                    want = ntt.ntt_pass_plain(cur, tables, ns_log, s)
+                    for log_c in sorted({ntt.dense_cols_log(rows, log_n, s, H100_SMS), 0,
+                                         4 if max_pass_log == 1 else 3}):
+                        got = _host_pass(host, cur, tables, ns_log, s, log_c)
+                        assert torch.equal(got, want), (rows, max_pass_log, s, ns_log, log_c)
+                    cur, ns_log = want, ns_log + s
+                assert torch.equal(cur, ntt.fft_with_root(x, f, root, max_pass_log))
 
 
 @pytest.mark.parametrize("name", sorted(FIELDS))

@@ -11,11 +11,13 @@ against Python ints and the JAX package.
   ``fixtures/jax_bn254_fft.json`` / ``jax_bn254_pallas.json``
   (``fixtures/make_torch_plonk.py`` writes them: interpret mode alone takes
   minutes on a CPU);
-* ``csrc/dense.cuh``'s product, square, power and inversion, the NTT pass
-  block over BN254 Fr (``ntt.cuh``) and the batch-inversion levels
+* ``csrc/dense.cuh``'s product, square, power and inversion, ``dense32.cuh``'s
+  product and butterfly, the dense NTT pass
+  block over BN254 Fr (``ntt_dense.cuh``) and the batch-inversion levels
   (``batch_inverse.cuh``) on the dense product, built with ``g++`` (plain
-  C++, so the host build runs what the card runs) and held against Python
-  ints and the plain versions; they skip without ``g++``.
+  C++, or ``mont.cuh``'s emulated carry flag for ``dense32.cuh``) and held
+  against Python ints and the plain versions; they skip without ``g++``;
+* the dense passes' grids at the provers' sizes (``ntt.dense_cols_log``).
 
 Tolerance: exact equality (every value is an integer).
 """
@@ -40,6 +42,8 @@ torch.set_num_threads(1)
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 FIELDS = {"fr": (BN254Fr, JaxFr), "fq": (BN254Field, JaxFq)}
 R = 1 << 256
+#: an H100's multiprocessors: the card the dense passes' grids are sized for
+H100_SMS = 132
 
 
 def _vals(p, n, seed):
@@ -133,10 +137,10 @@ def test_wrappers_refuse_cpu_tensors_for_the_kernels():
 _HOST_SRC = """
 #include <vector>
 #include "dense.cuh"
-#include "ntt.cuh"
+#include "ntt_dense.cuh"
 #include "batch_inverse.cuh"
 
-template <class F>
+template <class Q, class F = LwDense<Q>>
 static void elementwise(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, long n,
                         const uint32_t* e, int nbits) {
     for (long i = 0; i < n; i++) {
@@ -145,25 +149,32 @@ static void elementwise(int op, const uint32_t* a, const uint32_t* b, uint32_t* 
         else if (op == 2) F::sub(a + 8 * i, b + 8 * i, r + 8 * i);
         else if (op == 3) F::neg(a + 8 * i, r + 8 * i);
         else if (op == 4) F::inv(a + 8 * i, r + 8 * i);
-        else F::pow(a + 8 * i, e, nbits, r + 8 * i);
+        else if (op == 5) F::pow(a + 8 * i, e, nbits, r + 8 * i);
+        else if (op == 6) lw_d32_mul<Q>(a + 8 * i, b + 8 * i, r + 8 * i);
+        else {  // 7, 8: dense32.cuh's butterfly, u + v and u - v
+            uint32_t u[8], v[8];
+            for (int k = 0; k < 8; k++) u[k] = a[8 * i + k], v[k] = b[8 * i + k];
+            lw_d32_butterfly<Q>(u, v);
+            for (int k = 0; k < 8; k++) r[8 * i + k] = op == 7 ? u[k] : v[k];
+        }
     }
 }
 
 extern "C" void dense_op(int field, int op, const uint32_t* a, const uint32_t* b, uint32_t* r,
                          long n, const uint32_t* e, int nbits) {
-    if (field == LW_DENSE_BN254_FR) elementwise<LwBn254Fr>(op, a, b, r, n, e, nbits);
-    else elementwise<LwBn254Fq>(op, a, b, r, n, e, nbits);
+    if (field == LW_DENSE_BN254_FR) elementwise<LwBn254FrParams>(op, a, b, r, n, e, nbits);
+    else elementwise<LwBn254FqParams>(op, a, b, r, n, e, nbits);
 }
 
-extern "C" void ntt_pass(const int32_t* x, int32_t* out, const int32_t* t_lo,
-                         const int32_t* t_hi, long rows, int log_n, int ns_log, int s,
-                         int log_c) {
-    LwNttPass P = {(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)t_lo,
-                   (const uint32_t*)t_hi, rows, log_n, ns_log, s, log_c};
-    std::vector<uint32_t> sm(lw_ntt_pass_smem_words(s, log_c), 0xA5A5A5A5u);
+// kernel 1's dense pass, block by block with tid = 0, nt = 1
+extern "C" void ntt_pass(const int32_t* x, int32_t* out, const int32_t* pw, long rows,
+                         int log_n, int ns_log, int s, int log_c) {
+    LwDenseNttPass P = {(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)pw, rows, log_n,
+                        ns_log, s, log_c};
+    std::vector<uint32_t> sm(lw_dense_ntt_smem_words(s, log_c), 0xA5A5A5A5u);
     long cols = rows << (log_n - s);
     for (long b = 0; b < (cols + (1L << log_c) - 1) >> log_c; b++)
-        lw_ntt_pass_block<LwBn254Fr>(P, b, 0, 1, sm.data());
+        lw_dense_ntt_pass_block<LwBn254Fr32>(P, b, 0, 1, sm.data());
 }
 
 // every launch of a batch inversion, block by block with tid = 0, nt = 1
@@ -202,7 +213,7 @@ def host(tmp_path_factory):
     P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     lib.dense_op.argtypes = [I, I, P, P, P, L, P, I]
     lib.dense_op.restype = None
-    lib.ntt_pass.argtypes = [P, P, P, P, L, I, I, I, I]
+    lib.ntt_pass.argtypes = [P, P, P, L, I, I, I, I]
     lib.ntt_pass.restype = None
     lib.batch_inverse.argtypes = [I, P, P, L, I, I]
     lib.batch_inverse.restype = I
@@ -219,18 +230,30 @@ def _ints_of(words):
     return [int.from_bytes(row.astype("<u4").tobytes(), "little") for row in words]
 
 
+def _edges(p):
+    """The product's edge values as Montgomery forms: 0, 1, p - 1, p - 2,
+    R mod p, and 2^254 - 1, 2^253 - 1, 2^253 (mod p)."""
+    return [0, 1, p - 1, p - 2, R % p] + [((1 << k) - d) % p for k, d in
+                                          ((254, 1), (254, 2), (253, 1), (253, 0))]
+
+
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_host_dense_ops_equal_python_ints(host, name):
-    """dense.cuh's product, sum, difference, negation, inversion and power
-    on Montgomery values (x R mod p) against Python ints."""
+    """dense.cuh's product, sum, difference, negation, inversion and power,
+    and dense32.cuh's product and its butterfly, on
+    Montgomery values (x R mod p) against Python ints, random and the edge
+    values each against each."""
     f, _ = FIELDS[name]
     p, kid = f.p, f.ops.kernel_id
-    a, b = _vals(p, 500, 6), _vals(p, 500, 7)[::-1]
+    rinv = pow(R, -1, p)
+    edge = [v * rinv % p for v in _edges(p)]  # Montgomery forms are the edges
+    a = _vals(p, 500, 6) + [u for u in edge for _ in edge]
+    b = _vals(p, 500, 7)[::-1] + [v for _ in edge for v in edge]
+    n = len(a)
     am, bm = [v * R % p for v in a], [v * R % p for v in b]
-    wa, wb, out = _words(am), _words(bm), np.zeros((500, 8), np.uint32)
+    wa, wb, out = _words(am), _words(bm), np.zeros((n, 8), np.uint32)
     e = 2**200 + 12345
     ew = np.array([(e >> (32 * k)) & 0xFFFFFFFF for k in range(8)], np.uint32)
-    rinv = pow(R, -1, p)
     want = {
         0: [u * v * R % p for u, v in zip(a, b)],
         1: [(u + v) * R % p for u, v in zip(a, b)],
@@ -239,39 +262,67 @@ def test_host_dense_ops_equal_python_ints(host, name):
         4: [pow(u, -1, p) * R % p if u else 0 for u in a],
         5: [pow(u, e, p) * R % p for u in a],
     }
+    want[6] = want[0]
+    want[7], want[8] = want[1], want[2]
     for op, expect in want.items():
-        host.dense_op(kid, op, wa.ctypes.data, wb.ctypes.data, out.ctypes.data, 500,
+        host.dense_op(kid, op, wa.ctypes.data, wb.ctypes.data, out.ctypes.data, n,
                       ew.ctypes.data, e.bit_length())
         assert _ints_of(out) == expect, op
-    assert rinv  # R is invertible mod p
 
 
-def _host_pass(lib, x, tables, ns_log, s, log_c):
+def host_pass(lib, x, tables, ns_log, s, log_c):
+    """One dense pass of the g++ build, every block of it (the output
+    filled with garbage first: the blocks must write every point)."""
     xn = np.ascontiguousarray(x.numpy())
-    out = np.full_like(xn, 0x5A5A5A5A)  # the block must write every point
-    lo, hi = tables.lo_rows.numpy(), tables.hi_rows.numpy()
-    lib.ntt_pass(xn.ctypes.data, out.ctypes.data, lo.ctypes.data, hi.ctypes.data,
-                 x.shape[1], x.shape[2].bit_length() - 1, ns_log, s, log_c)
+    out = np.full_like(xn, 0x5A5A5A5A)
+    pw = np.ascontiguousarray(ntt.power_rows(tables).numpy())
+    lib.ntt_pass(xn.ctypes.data, out.ctypes.data, pw.ctypes.data, x.shape[1],
+                 x.shape[2].bit_length() - 1, ns_log, s, log_c)
     return torch.from_numpy(out)
 
 
-@pytest.mark.parametrize("log_n", [1, 3, 6, 9, 10])
+def host_passes_equal_plain(lib, f, log_n, rows, seed):
+    """Every pass of a transform of 2^log_n points over ``rows`` rows, both
+    roots, under the fft's plan and at max_pass_log 3 (and 1 up to 2^10),
+    each at the port's columns per block on an H100 (``dense_cols_log``)
+    and at 2^0 and 2^3 (2^4 at the one-stage plan), held against
+    ntt_pass_plain; the last output against the plain fft."""
+    vals = np.array(_vals(f.p, rows << log_n, seed) if rows << log_n >= 4
+                    else [5, 7][:rows << log_n], dtype=object)
+    x = f.array(vals.reshape(rows, 1 << log_n), "cpu")
+    w = f.params.primitive_root_of_unity(log_n)
+    for root in (w, pow(w, f.p - 2, f.p)):
+        tables = ntt.twiddle_tables(f, root, log_n, "cpu")
+        for max_pass_log in (ntt.MAX_PASS_LOG, 3, 1)[:3 if log_n <= 10 else 2]:
+            cur, ns_log = x, 0
+            for s in ntt.dense_pass_plan(log_n, max_pass_log):
+                want = ntt.ntt_pass_plain(cur, tables, ns_log, s)
+                widths = {ntt.dense_cols_log(rows, log_n, s, H100_SMS), 0,
+                          4 if max_pass_log == 1 else 3}
+                for log_c in sorted(widths):
+                    assert torch.equal(host_pass(lib, cur, tables, ns_log, s, log_c), want), \
+                        (log_n, rows, max_pass_log, s, ns_log, log_c)
+                cur, ns_log = want, ns_log + s
+            assert torch.equal(cur, ntt.fft_with_root(x, f, root, max_pass_log))
+
+
+@pytest.mark.parametrize("log_n", [1, 3, 6, 9, 10, 2, 4, 5, 7, 8, 11, 12])
 def test_host_ntt_pass_block_equals_plain(host, log_n):
-    """Kernel 1's block over BN254 Fr, pass by pass, against ntt_pass_plain,
-    at several radices and tile widths."""
-    rows = 2
-    vals = np.array(_vals(BN254Fr.p, rows << log_n, log_n) if log_n > 1
-                    else [0, 1, 5, 7], dtype=object)
-    x = BN254Fr.array(vals.reshape(rows, 1 << log_n), "cpu")
-    root = BN254Fr.params.primitive_root_of_unity(log_n)
-    tables = ntt.twiddle_tables(BN254Fr, root, log_n, "cpu")
-    for max_pass_log, log_c in ((1, 4), (3, 0), (8, 3)):
-        cur, ns_log = x, 0
-        for s in ntt.pass_plan(log_n, max_pass_log):
-            got = _host_pass(host, cur, tables, ns_log, s, log_c)
-            assert torch.equal(got, ntt.ntt_pass_plain(cur, tables, ns_log, s))
-            cur, ns_log = got, ns_log + s
-        assert torch.equal(cur, ntt.fft_with_root(x, BN254Fr, root, max_pass_log))
+    """Kernel 1's dense block over BN254 Fr (``ntt_dense.cuh``), pass by
+    pass, against ntt_pass_plain: 1-3 rows, both roots, several radices and
+    tile widths (one row above 2^10: the plain passes take the time)."""
+    for rows in (1, 2, 3)[:3 if log_n <= 10 else 1]:
+        host_passes_equal_plain(host, BN254Fr, log_n, rows, log_n + rows)
+
+
+def test_dense_passes_fill_the_card():
+    """At the provers' sizes (2^16 .. 2^18, one row; Groth16's 3 rows at
+    2^16 and 2^17) every pass of a dense transform runs on at least 132
+    blocks, one for each SM of an H100."""
+    for log_n, rows in ((16, 1), (17, 1), (18, 1), (16, 3), (17, 3)):
+        for s in ntt.dense_pass_plan(log_n):
+            blocks = -(-(rows << (log_n - s)) >> ntt.dense_cols_log(rows, log_n, s, H100_SMS))
+            assert blocks >= 132, (log_n, rows, s, blocks)
 
 
 @pytest.mark.parametrize("name", sorted(FIELDS))

@@ -492,11 +492,25 @@ def test_dense_batch_inverse_kernel_matches_plain(dev, name, shape, launches):
     assert torch.equal(got, f.ops.batch_inverse_plain(a.to(dev)).cpu())
 
 
+@pytest.mark.parametrize("field", [0, 2, 3])
+def test_dense32_product_equals_cios_on_card(dev, field):
+    """dense32.cuh's product (kernel 1's over the dense fields) equals
+    dense.cuh's CIOS product bit for bit on the card: 2^20 random pairs and the edge values each against each, over
+    BN254 Fr, BLS12-377 Fr (8 limbs) and BLS12-377 Fq (12)."""
+    from lambda_elliptic_curves_tpu_torch.tools import dense_mul
+
+    got = dense_mul.check(field)
+    assert got["pairs"] > 1 << 20
+    assert all(v == 0 for k, v in got.items() if k != "pairs"), got
+
+
 @pytest.mark.parametrize("rows", [1, 2, 4])
 def test_dense_ntt_pass_kernel_matches_plain(dev, rows):
     """Every pass of every BN254 Fr transform 2^1 .. 2^14 at radix up to
     2^8 and up to 2^3, forward and inverse root, bitwise against
-    ntt_pass_plain on the card."""
+    ntt_pass_plain on the card, each pass one launch of the dense entry
+    (on ``ntt.dense_cols_log`` columns a block); the fft is exactly its
+    plan's passes."""
     f = _bn254()["fr"]
     for log_n in range(1, 15):
         x = _dense_values(f, rows << log_n, log_n)[:, :rows << log_n].reshape(8, rows, -1)
@@ -506,21 +520,31 @@ def test_dense_ntt_pass_kernel_matches_plain(dev, rows):
             tables = ntt.twiddle_tables(f, root, log_n, dev)
             for max_pass_log in (ntt.MAX_PASS_LOG, 3):
                 cur, ns_log = x, 0
-                for s in ntt.pass_plan(log_n, max_pass_log):
+                for s in ntt.dense_pass_plan(log_n, max_pass_log):
                     native.launches["dense_ntt"] = 0
                     got = ntt.ntt_pass(cur, torch.empty_like(cur), tables, ns_log, s)
                     assert native.launches["dense_ntt"] == 1
                     assert torch.equal(got, ntt.ntt_pass_plain(cur, tables, ns_log, s)), \
                         (log_n, s, ns_log)
                     cur, ns_log = got, ns_log + s
+                native.launches["dense_ntt"] = 0
+                assert torch.equal(ntt.fft_with_root(x, f, root, max_pass_log), cur)
+                assert native.launches["dense_ntt"] == len(ntt.dense_pass_plan(log_n, max_pass_log))
 
 
 def test_bn254_fft_on_card_matches_cpu(dev):
+    """fft and ifft at 2^12 and at Plonk's 2^16 and 2^18 against the CPU's
+    plain passes, each exactly its plan's launches of the dense entry."""
     f = _bn254()["fr"]
-    x = _dense_values(f, 1 << 12, 12)[:, :1 << 12].contiguous()
-    got = _on_card(ntt.fft, x.to(dev), f)
-    assert torch.equal(got, ntt.fft(x, f))
-    assert torch.equal(_on_card(ntt.ifft, got.to(dev), f), x)
+    for log_n in (12, 16, 18):
+        x = _dense_values(f, 1 << log_n, log_n)[:, :1 << log_n].contiguous()
+        ntt.twiddle_tables(f, f.params.primitive_root_of_unity(log_n), log_n, dev)
+        native.launches["dense_ntt"] = 0
+        got = _on_card(ntt.fft, x.to(dev), f)
+        assert native.launches["dense_ntt"] == len(ntt.dense_pass_plan(log_n))
+        assert torch.equal(got, ntt.fft(x, f) if log_n == 12 else ntt.fft_with_root_plain(
+            x.to(dev), f, f.params.primitive_root_of_unity(log_n)).cpu())
+        assert torch.equal(_on_card(ntt.ifft, got.to(dev), f), x)
 
 
 def test_msm_routes_agree_on_card(dev):
@@ -858,13 +882,17 @@ def test_bls12_377_ntt_pass_kernel_matches_plain(dev, rows):
             tables = ntt.twiddle_tables(f, root, log_n, dev)
             for max_pass_log in (ntt.MAX_PASS_LOG, 3):
                 cur, ns_log = x, 0
-                for s in ntt.pass_plan(log_n, max_pass_log):
+                for s in ntt.dense_pass_plan(log_n, max_pass_log):
                     native.launches["dense_ntt_bls12_377"] = 0
                     got = ntt.ntt_pass(cur, torch.empty_like(cur), tables, ns_log, s)
                     assert native.launches["dense_ntt_bls12_377"] == 1
                     assert torch.equal(got, ntt.ntt_pass_plain(cur, tables, ns_log, s)), \
                         (log_n, s, ns_log)
                     cur, ns_log = got, ns_log + s
+                native.launches["dense_ntt_bls12_377"] = 0
+                assert torch.equal(ntt.fft_with_root(x, f, root, max_pass_log), cur)
+                assert native.launches["dense_ntt_bls12_377"] == len(
+                    ntt.dense_pass_plan(log_n, max_pass_log))
 
 
 @pytest.mark.parametrize("stage", ["fft", "pallas"])
