@@ -29,13 +29,21 @@ Phases (one result line each, with its seconds):
      launches of each search, and times it at factor 20 (against the host
      loop, and by batch size) and one full batch of each size; 2g holds
      kernel 6 (Goldilocks, BabyBear and their Fp2 and Fp4 towers) against
-     its plain version for every op at 2^22 elements, and times products
-     at 2^22 and 2^24 (BabyBear beside the PyTorch yardstick (a * b) % p)
-     and batch inversion at the prover's shapes; 2h holds kernel 7 (their
-     NTT passes) against ``ntt_pass_plain`` at every pass of every size
-     2^1 .. 2^22 at (L, 1|2|4, N) with the forward and the inverse root,
-     and the whole fft at 2^22 (and 2^24 for BabyBear) against the plain
-     transform and by ifft round trips, and times those ffts; 2i holds
+     its plain version for every op at 2^22 elements (batch inversion also
+     over zero patterns laid on its blocks' chunks, a size that is no
+     multiple of a block's elements and an operand read with element
+     stride 0), times products at 2^22 and 2^24 (BabyBear beside the
+     PyTorch yardstick (a * b) % p) and batch inversion at the prover's
+     shapes, each with its bound, and reports both kernels' registers and
+     occupancy; 2h holds kernel 7 (their NTT passes) against
+     ``ntt_pass_plain`` at every pass of the fft's plan (``ntt.plan_for``)
+     of every size 2^1 .. 2^22 at (L, 1|2|4, N) with the forward and the
+     inverse root, and the whole fft at 2^22 (and 2^24 for BabyBear)
+     against the plain transform and by ifft round trips, times those
+     ffts (the passes' launches alone, and whole calls) against the fixed
+     bound and the plan's bytes floor, and reports
+     each pass's grid, threads, registers and occupancy at the prover's
+     2^20 and 2^22 points, 1, 2 and 4 rows; 2i holds
      kernels 8 (BN254 Fr and Fq ops) and 9 (their batch inversion) against
      their plain versions at 2^18 and 2^22 elements and times them against
      their bounds; 2j holds kernel 1's BN254 Fr entry against
@@ -261,6 +269,11 @@ ADD_OPS = (0, 8, 16)
 SMALL_MUL_OPS = {"goldilocks": (8, 0, 14), "babybear": (3, 0, 3)}
 SMALL_ADD_OPS = {"goldilocks": (0, 2, 6), "babybear": (0, 1, 2)}
 TOWER_MULS = {1: (1, 0), 2: (4, 5), 4: (13, 25)}  # (base products, base adds)
+# a batch inversion's base products an element besides the trick's 3 a
+# nonzero element: the tower's norm down to the base field and the lift
+# back (Fp2: 3 and 2; Fp4: an Fp2 norm of 2 Fp2 squares and a product by
+# the non-residue, 7, its base norm 3, and the lifts 2 and 6)
+TOWER_INV_MULS = {1: 0, 2: 5, 4: 18}
 KECCAK_F_OPS = (0, 24 * 190, 0)
 # BN254 (csrc/dense.cuh): a dense CIOS product is 32 64x64-bit multiply-adds
 # (16 for a*b, 16 for m*p) and 4 products m = t0 n0; a 64x64 -> 128-bit
@@ -755,6 +768,49 @@ def _small_mul_bound(state, name, degree, n):
                                             (adds * n, SMALL_ADD_OPS[name])))
 
 
+def _small_inv_bound(state, name, degree, a):
+    """Bound of a batch inversion of ``a``, (degree L, *batch), over field
+    ``name``: each value read once and written once, and 3 base products a
+    nonzero element plus the tower's norm and lift an element
+    (``TOWER_INV_MULS``), at ``SMALL_MUL_OPS`` (sums not counted)."""
+    n = a[0].numel()
+    nonzero = int((a != 0).reshape(a.shape[0], -1).any(dim=0).sum().item())
+    width = degree * (8 if name == "goldilocks" else 4)
+    return bound(state, 2.0 * width * n,
+                 ops((3 * nonzero + TOWER_INV_MULS[degree] * n, SMALL_MUL_OPS[name])))
+
+
+def _small_info(entry: str, *args) -> dict:
+    """Threads a block, blocks an SM holds (the occupancy calculator),
+    registers and spilled bytes a thread of a kernel 6 or 7 instance, from
+    its C entry ``lw_small_field_info`` / ``lw_small_ntt_info``."""
+    import ctypes
+
+    from lambda_elliptic_curves_tpu_torch import native
+
+    info = (ctypes.c_int * 5)()
+    rc = getattr(native.cuda_lib(), entry)(*args, info)
+    check(rc == 0, f"{entry}{args}: CUDA error {rc}")
+    return {"threads": info[0], "blocks_per_sm": info[1], "registers": info[2],
+            "spill_bytes": info[3], **({"elements_per_block": info[4]}
+                                       if entry == "lw_small_field_info" else {})}
+
+
+def _zero_patterns(n: int, per_block: int, threads: int) -> dict:
+    """Boolean masks (on the CPU) of the elements a batch-inversion case sets
+    to zero, laid on kernel 6's blocks: a block takes ``per_block``
+    elements, thread t of it elements t, t + threads, ..."""
+    import torch
+
+    k = per_block // threads
+    first = torch.zeros(n, dtype=torch.bool)  # thread 1 of block 2, each of its k positions
+    first[2 * per_block + 1 + threads * torch.arange(k)] = True
+    block = torch.zeros(n, dtype=torch.bool)  # the whole of block 3
+    block[3 * per_block:4 * per_block] = True
+    return {"a zero at each of a thread's k positions": first, "a whole block of zeros": block,
+            "every element zero": torch.ones(n, dtype=torch.bool)}
+
+
 def phase_small_kernels(state):
     import torch
     from lambda_elliptic_curves_tpu_torch import native
@@ -791,7 +847,26 @@ def phase_small_kernels(state):
                     err = max(err, max_abs_err(got, want))
                     check(err == 0, f"kernel 6 != plain: {name} degree {degree} {op}")
                     checked += 1
-                del a, b, c, cases
+                del cases
+                # batch inversion's zero patterns on its own blocks, a size
+                # that is no multiple of a block's elements, and one value
+                # read with element stride 0
+                geo = _small_info("lw_small_field_info", f.ops.kernel_id, degree, 1)
+                inv_cases = {}
+                for what, mask in _zero_patterns(n, geo["elements_per_block"],
+                                                 geo["threads"]).items():
+                    z = a.clone()
+                    z[:, mask.to(dev)] = 0
+                    inv_cases[what] = z
+                inv_cases["2^22 - 5 elements"] = a[:, 5:].contiguous()
+                inv_cases["one value, element stride 0"] = c.expand(-1, n)
+                for what, z in inv_cases.items():
+                    err = max(err, max_abs_err(fd.batch_inverse(z),
+                                               plain.batch_inverse(z.contiguous())))
+                    check(err == 0, f"kernel 6 != plain: {name} degree {degree} batch_inverse, "
+                          f"{what}")
+                    checked += 1
+                del a, b, c, inv_cases
                 torch.cuda.empty_cache()
         # spot checks against host ints: Goldilocks products
         f, arith = _small("goldilocks")
@@ -823,17 +898,31 @@ def phase_small_kernels(state):
                     del x, y
                 torch.cuda.empty_cache()
         # the prover's batch inversions at 2^20 rows (N = 2^22): boundary
-        # terms (L, 2, N) in the base field, DEEP terms (D L, 4, N) in E
+        # terms (L, 2, N) in the base field, DEEP terms (D L, 4, N) in E;
+        # each one launch of the inversion kernel
         inv = {}
         for proof_name, (name, degree) in SMALL_PROVES.items():
             f, _ = _small(name)
             fd = _tower(f, degree)
             base = _random_small(f, 1, 2 << 22, gen).reshape(f.num_limbs, 2, 1 << 22)
             ext = _random_small(f, degree, 4 << 22, gen).reshape(fd.num_limbs, 4, 1 << 22)
-            inv[proof_name] = {"base (L, 2, 2^22)": cuda_ms(lambda: f.batch_inverse(base), 5),
-                               "E (D L, 4, 2^22)": cuda_ms(lambda: fd.batch_inverse(ext), 5)}
+            inv[proof_name] = {}
+            for what, fx, d, x in (("base (L, 2, 2^22)", f, 1, base),
+                                   ("E (D L, 4, 2^22)", fd, degree, ext)):
+                native.launches["small_field"] = 0
+                fx.batch_inverse(x)
+                check(native.launches["small_field"] == 1,
+                      f"{proof_name} {what} inversion: {native.launches['small_field']} launches")
+                ms = cuda_ms(lambda: fx.batch_inverse(x), 10)
+                b_ms, b_by = _small_inv_bound(state, name, d, x)
+                inv[proof_name][what] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                                         "share": b_ms / ms}
             del base, ext
             torch.cuda.empty_cache()
+        info = {f"{name} degree {d} {kind}": _small_info("lw_small_field_info",
+                                                          _small(name)[1].kernel_id, d, inv_k)
+                for name in ("goldilocks", "babybear") for d in (1, 2, 4)
+                for kind, inv_k in (("op", 0), ("inverse", 1))}
         # the kernels line: Goldilocks Fp2 products at 2^22 elements, the
         # main path's LDE size and its commonest product
         f, _ = _small("goldilocks")
@@ -841,16 +930,22 @@ def phase_small_kernels(state):
         x, y = _random_small(f, 2, n, gen), _random_small(f, 2, n, gen)
         t = times["goldilocks degree 2 mul 2^22"]
         plain_ms = cuda_ms(lambda: fd.plain().mul(x, y), 2)
+        g_inv = inv["goldilocks_fp2"]
         rec["small_field"].update(max_abs_err=err, ms=t["ms"], plain_ms=plain_ms,
                                   bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                                  share=t["share"],
                                   library_ms=None, shape="Goldilocks Fp2 mul, 2^22 elements",
                                   babybear_yardstick_ms={k: v["ms"] for k, v in times.items()
-                                                         if "pytorch" in k})
-        state["small_field"] = {"mul": times, "batch_inverse_ms": inv}
+                                                         if "pytorch" in k},
+                                  inverse={"Goldilocks " + k: v for k, v in g_inv.items()},
+                                  occupancy={k: v for k, v in info.items()
+                                             if k.startswith("goldilocks degree 2")})
+        state["small_field"] = {"mul": times, "batch_inverse": inv, "kernels": info}
         del x, y
         torch.cuda.empty_cache()
-        return (f"{checked} ops bitwise equal to plain at 2^22 (both fields, degrees 1/2/4); "
-                + json.dumps(state["small_field"]))
+        return (f"{checked} ops bitwise equal to plain at 2^22 (both fields, degrees 1/2/4; "
+                "batch inversion also over zero patterns, a ragged size and a stride-0 "
+                "operand); " + json.dumps(state["small_field"]))
     run_ops()
 
     @phase("2h small-field ntt")
@@ -872,9 +967,14 @@ def phase_small_kernels(state):
                     for rows in (1, 2, 4):
                         x = _random_small(f, 1, rows << log_n, gen).reshape(f.num_limbs,
                                                                            rows, -1)
-                        for max_pass_log in (ntt.MAX_PASS_LOG, 3)[:2 if log_n <= 14 else 1]:
+                        # the fft's plan; up to 2^14 also radix-2^8 passes (the
+                        # kernel's largest) and radix at most 2^3
+                        plans = [ntt.plan_for(f, log_n)] + ([
+                            ntt.pass_plan(log_n, ntt.SMALL_DFT_LOG), ntt.pass_plan(log_n, 3)]
+                            if log_n <= 14 else [])
+                        for plan in plans:
                             cur, ns_log = x, 0
-                            for s in ntt.pass_plan(log_n, max_pass_log):
+                            for s in plan:
                                 got = ntt.ntt_pass(cur, torch.empty_like(cur), tables, ns_log, s)
                                 want = ntt.ntt_pass_plain(cur, tables, ns_log, s)
                                 err = max(err, max_abs_err(got, want))
@@ -882,11 +982,11 @@ def phase_small_kernels(state):
                                       f" radix 2^{s} after 2^{ns_log}")
                                 cur, ns_log = got, ns_log + s
                                 checked += 1
-                            check(torch.equal(ntt.fft_with_root(x, f, root, max_pass_log), cur),
-                                  f"{name} fft != its chain of passes at 2^{log_n} x {rows}")
+                            # every plan computes the same transform
+                            check(torch.equal(ntt.fft_with_root(x, f, root), cur),
+                                  f"{name} fft != the chain of passes {plan} at 2^{log_n} x {rows}")
                             if log_n <= 14:
-                                check(torch.equal(cur.cpu(), ntt.fft_with_root(
-                                    x.cpu(), f, root, max_pass_log)),
+                                check(torch.equal(cur.cpu(), ntt.fft_with_root(x.cpu(), f, root)),
                                       f"{name} fft on the card != CPU path at 2^{log_n} x {rows}")
                         del x, cur, got, want
                 torch.cuda.empty_cache()
@@ -898,7 +998,8 @@ def phase_small_kernels(state):
                 x = _random_small(f, 1, n, gen)
                 native.launches["small_ntt"] = 0
                 y = ntt.fft(x, f)
-                check(native.launches["small_ntt"] == len(ntt.pass_plan(log_n)),
+                plan = ntt.plan_for(f, log_n)
+                check(native.launches["small_ntt"] == len(plan),
                       f"{name} fft 2^{log_n}: {native.launches['small_ntt']} launches")
                 want = ntt.fft_with_root_plain(x, f, root)
                 err = max(err, max_abs_err(y, want))
@@ -911,21 +1012,52 @@ def phase_small_kernels(state):
                 b_ms, b_by = bound(state, 2.0 * width * n,
                                    ops((n // 2 * log_n, SMALL_MUL_OPS[name]),
                                        (n * log_n, SMALL_ADD_OPS[name])))
+                # the passes' launches alone, on buffers allocated once
+                tables = ntt.twiddle_tables(f, root, log_n, dev)
+                cur = x.reshape(f.num_limbs, 1, n)
+                out, buf = torch.empty_like(cur), torch.empty_like(cur)
+                passes_ms = cuda_ms(lambda: ntt._launch(cur, out, buf, tables, 0, plan), 10)
+                # the plan's bytes floor: every pass reads and writes each value
+                floor_ms = len(plan) * 2.0 * width * n / HBM_BYTES_PER_S * 1e3
                 times[f"{name} fft 2^{log_n}"] = {
-                    "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
-                    "passes": ntt.pass_plan(log_n),
+                    "ms": passes_ms, "fft_call_ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "share": b_ms / passes_ms, "passes": plan, "plan_bytes_floor_ms": floor_ms,
+                    "plan_floor_share": floor_ms / passes_ms,
                     "plain_ms": cuda_ms(lambda: ntt.fft_with_root_plain(x, f, root), 1)}
-                del x, y, want
+                del x, y, want, cur, out, buf
                 torch.cuda.empty_cache()
+        # each pass's grid at the prover's sizes: one row, and the D = 2 and
+        # 4 rows of an E vector; every pass on at least one block an SM
+        sms = ntt.sm_count(dev)
+        grids = {}
+        for name in ("goldilocks", "babybear"):
+            f, _ = _small(name)
+            for log_n in (20, 22):
+                for rows in (1, 2, 4):
+                    passes = []
+                    for s in ntt.plan_for(f, log_n):
+                        lc = ntt.small_cols_log(rows, log_n, s, sms)
+                        blocks = -(-(rows << (log_n - s)) >> lc)
+                        check(blocks >= sms, f"{name} 2^{log_n} x {rows}: a radix-2^{s} pass "
+                              f"on {blocks} blocks, fewer than the card's {sms} SMs")
+                        passes.append({"radix_log": s, "cols_log": lc, "blocks": blocks,
+                                       **_small_info("lw_small_ntt_info", f.ops.kernel_id, s,
+                                                     lc)})
+                    grids[f"{name} 2^{log_n} x {rows}"] = passes
         t = times["goldilocks fft 2^22"]
         rec["small_ntt"].update(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-                                shape=f"Goldilocks fft 2^22, passes {t['passes']}")
-        state["small_ntt"] = times
+                                share=t["share"], plan_bytes_floor_ms=t["plan_bytes_floor_ms"],
+                                plan_floor_share=t["plan_floor_share"],
+                                fft_call_ms=t["fft_call_ms"],
+                                shape=f"Goldilocks fft 2^22, passes {t['passes']} (their "
+                                      "launches alone)",
+                                passes=grids["goldilocks 2^22 x 1"])
+        state["small_ntt"] = {**times, "grids": grids}
         return (f"{checked} passes bitwise equal to ntt_pass_plain (2^1 .. 2^22 x 1/2/4 rows, "
-                f"forward and inverse root, both fields; radix <= 2^{ntt.MAX_PASS_LOG}, and "
-                "<= 2^3 up to 2^14); fft = CPU path up to 2^14; fft = plain fft and ifft round "
-                "trips at 2^22 (and 2^24 BabyBear); " + json.dumps(times))
+                "forward and inverse root, both fields; the fft's plan, and up to 2^14 radix "
+                "2^8 and radix <= 2^3); fft = CPU path up to 2^14; fft = plain fft and ifft round "
+                "trips at 2^22 (and 2^24 BabyBear); " + json.dumps(state["small_ntt"]))
     run_ntt()
 
 

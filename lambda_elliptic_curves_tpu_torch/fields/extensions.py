@@ -334,8 +334,9 @@ class DeviceQuadraticField:
 
     def batch_inverse(self, a):
         """Elementwise inverse, zeros mapping to zero: through the norm, one
-        base-field batch inversion (on a card one launch of kernel 6, or
-        kernel 9 over a dense base)."""
+        base-field batch inversion (on a card one launch of kernel 6's
+        inversion, which takes each norm, inverts them by Montgomery's trick
+        inside each block and lifts them; or kernel 9 over a dense base)."""
         if self._on_card(a):
             return self._launch(_OP_INV, a)
         f = self.base

@@ -40,8 +40,8 @@ COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
 #: ``field`` the elementwise Stark252 ops, ``field_pow`` powers by a host
 #: exponent, ``field_inv`` batch inversion (``csrc/batch_inverse.cu``),
 #: ``grind`` the proof-of-work nonce search (``csrc/keccak.cu``),
-#: ``small_field`` the Goldilocks / BabyBear and tower ops
-#: (``csrc/small_field.cu``), ``small_ntt`` their NTT passes
+#: ``small_field`` the Goldilocks / BabyBear and tower ops and their batch
+#: inversion (``csrc/small_field.cu``), ``small_ntt`` their NTT passes
 #: (``csrc/small_ntt.cu``), ``dense_field`` the BN254 Fr / Fq ops
 #: (``csrc/dense_field.cu``), ``dense_inv`` their batch inversion
 #: (``csrc/batch_inverse.cu``), ``dense_ntt`` BN254 Fr's NTT passes
@@ -188,7 +188,9 @@ def cuda_lib():
                 "lw_keccak256_words": [P, I, L, I, P, P],
                 "lw_grind_search": [U, U, U, U, I, U, L, P, P],
                 "lw_small_field_op": [I, I, I, P, L, L, P, L, L, P, L, U, P, I, P],
-                "lw_small_ntt_passes": [I, P, P, P, P, P, L, I, I, P, I, P],
+                "lw_small_field_info": [I, I, I, P],
+                "lw_small_ntt_passes": [I, P, P, P, P, P, P, L, I, I, I, P, P, I, P],
+                "lw_small_ntt_info": [I, I, I, P],
                 "lw_dense_field_op": [I, I, P, L, L, P, L, L, P, L, P, I, P],
                 "lw_dense_batch_inverse_plan": [I, L, P],
                 "lw_dense_batch_inverse": [I, P, P, P, L, P],

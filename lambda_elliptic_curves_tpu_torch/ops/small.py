@@ -13,7 +13,8 @@ tensor, components depth-first.
 
 Every public operation dispatches on the device of its operands: a CUDA
 tensor goes to kernel 6 (``csrc/small_field.cu``, one launch per op,
-whatever the degree), or raises; a CPU tensor goes to the plain PyTorch
+whatever the degree; batch inversion on a kernel of its own, Montgomery's
+trick inside each block), or raises; a CPU tensor goes to the plain PyTorch
 version, which computes on 16-bit digits held in ``int64`` (a 32x32-bit
 product overflows a signed ``int64``) and composes tower ops from base
 ops as the JAX package does.  The plain versions take tensors on any
@@ -217,11 +218,12 @@ class SmallField:
     # -- kernel 6 wrapper (csrc/small_field.cu) ---------------------------------
     def _operand(self, x: torch.Tensor, rows: int, batch: tuple, n: int):
         """(tensor, limb stride, element stride) for the kernel: one value
-        broadcast over the batch is read with element stride 0, anything
+        broadcast over the batch (a batch of one, or an expanded view whose
+        batch strides are all 0) is read with element stride 0, anything
         else as a contiguous (rows, n) plane set."""
         if x.dtype != torch.int32 or not x.is_cuda or x.shape[0] != rows:
             raise TypeError(f"{self.name} kernel takes ({rows}, *batch) int32 CUDA tensors")
-        if n > 1 and x[0].numel() == 1:
+        if n > 1 and (x[0].numel() == 1 or not any(x.stride()[1:])):
             return x, x.stride(0), 0
         x = x.expand((rows,) + batch).contiguous()
         return x, n, 1
@@ -280,8 +282,9 @@ class SmallField:
 
     def batch_inverse(self, a):
         """Elementwise inverse, zeros mapping to zero: on the card one
-        Fermat power per element (kernel 6), on the CPU the plain version
-        (Montgomery's trick)."""
+        launch of kernel 6's inversion (Montgomery's trick inside each
+        block, one Fermat power a block), on the CPU the plain version
+        (Montgomery's trick over the whole batch)."""
         return self.batch_inverse_plain(a) if self._on_cpu(a) else self.op_cuda(_OP_INV, a)
 
     mont_inv = batch_inverse

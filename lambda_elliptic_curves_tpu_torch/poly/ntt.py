@@ -22,7 +22,9 @@ computes what that kernel computes where the JAX ``fft`` runs the XLA
 ``_fft_pease``;
 ``csrc/small_ntt.cu``, which
 replaces the JAX package's XLA ``_fft_pease``, for Goldilocks and
-BabyBear), all passes of a transform from one call of its C entry; on a
+BabyBear: :func:`small_pass_plan`'s passes on :func:`small_cols_log`
+columns a block, DFT roots from ``Twiddles.dft``), all passes of a
+transform from one call of its C entry; on a
 CPU tensor it is :func:`ntt_pass_plain`, the same pass in torch ops over
 the field's plain arithmetic.  Root powers come from two tables of about
 2^(L/2) entries per (root, L) (:func:`twiddle_tables`): w^e =
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from ..fields.field import PrimeField
-from ..ops import dense, limbs
+from ..ops import dense, limbs, small
 from ..utils.errors import FFTError
 from .. import native
 
@@ -67,6 +69,23 @@ MAX_PASS_LOG = 8
 DENSE_MAX_PASS_LOG = 7
 DENSE_MAX_COLS_LOG = 3
 DENSE_BLOCKS_PER_SM = 2
+
+#: the small fields' passes (``csrc/small_ntt.cuh``): the kernel takes a
+#: radix up to 2^``SMALL_DFT_LOG`` (``LW_SNTT_MAX_S``: its DFT roots'
+#: table holds that many), each a DFT of r1 x r2 points in registers; the
+#: fft's plan takes at most 2^6 (:func:`small_pass_plan`: [6, 6, 5, 5] at
+#: 2^22, [5, 5, 5, 5] at 2^20, [6, 6, 6, 6] at 2^24); the columns a block
+#: takes are set pass by pass (:func:`small_cols_log`): at most 2^5
+#: (128-byte runs of every BabyBear limb plane), fewer while the pass
+#: would otherwise run on fewer than ``SMALL_BLOCKS_PER_SM`` blocks for
+#: each SM.  The sweep (``tools/sweep_ntt.py --small``) found radix-2^6
+#: plans 13-19% faster than [8, 7, 7] at 2^22 and [8, 8, 8] at 2^24 (a
+#: radix-2^8 pass holds 16 points a thread and 100-128 registers), and
+#: this rule within its noise of the fastest width at every prover shape
+SMALL_DFT_LOG = 8
+SMALL_MAX_PASS_LOG = 6
+SMALL_MAX_COLS_LOG = 5
+SMALL_BLOCKS_PER_SM = 2
 
 
 # ---------------------------------------------------------------------------
@@ -163,13 +182,16 @@ class Twiddles(NamedTuple):
     whose tables have its limb count in place of 8).  ``powers``: for a
     dense field on the card, every root^e, e < 2^L, entry-major ``(2^L,
     8)`` (:func:`power_rows`), which the dense pass kernel reads; else
-    None."""
+    None.  ``dft``: for a small field, the DFT roots root^(e 2^L / R), e <
+    R = 2^min(L, ``SMALL_DFT_LOG``), entry-major ``(R, L)``, which the
+    small pass kernel reads; else None."""
     lo: torch.Tensor
     hi: torch.Tensor
     lo_rows: torch.Tensor
     hi_rows: torch.Tensor
     ops: object
     powers: torch.Tensor | None = None
+    dft: torch.Tensor | None = None
 
 
 def _dense_ntt(ops) -> bool:
@@ -178,11 +200,16 @@ def _dense_ntt(ops) -> bool:
     return isinstance(ops, dense.DenseField)
 
 
+def _small_ntt(ops) -> bool:
+    """Whether ``ops`` is a small field, whose passes run on kernel 7."""
+    return isinstance(ops, small.SmallField)
+
+
 def twiddle_tables(field: PrimeField, root_int: int, log_n: int, device) -> Twiddles:
     """:class:`Twiddles` of ``root_int`` for 2^log_n points, built on the
-    host with Python ints; over a dense field on the card also ``powers``
-    (:func:`power_rows`: one launch of kernel 8).  Cached per (root, log_n,
-    device)."""
+    host with Python ints (over a small field also ``dft``); over a dense
+    field on the card also ``powers`` (:func:`power_rows`: one launch of
+    kernel 8).  Cached per (root, log_n, device)."""
     key = (field, root_int % field.p, log_n, str(device))
     hit = _table_cache.get(key)
     if hit is not None:
@@ -200,6 +227,10 @@ def twiddle_tables(field: PrimeField, root_int: int, log_n: int, device) -> Twid
     lo, hi = run(root_int % p, 1 << h), run(pow(root_int, 1 << h, p), 1 << (log_n - h))
     tabs = Twiddles(*(torch.from_numpy(np.ascontiguousarray(t)).to(device)
                       for t in (lo, hi, lo.T, hi.T)), field.ops)
+    if _small_ntt(field.ops):
+        dft_log = min(log_n, SMALL_DFT_LOG)
+        dft = run(pow(root_int, 1 << (log_n - dft_log), p), 1 << dft_log)
+        tabs = tabs._replace(dft=torch.from_numpy(np.ascontiguousarray(dft.T)).to(device))
     if _dense_ntt(field.ops) and tabs.lo.device.type != "cpu":
         tabs = tabs._replace(powers=power_rows(tabs))
     _table_cache[key] = tabs
@@ -250,6 +281,24 @@ def dense_pass_plan(log_n: int, max_pass_log: int = MAX_PASS_LOG) -> list:
     return pass_plan(log_n, min(max_pass_log, DENSE_MAX_PASS_LOG))
 
 
+def small_pass_plan(log_n: int, max_pass_log: int = MAX_PASS_LOG) -> list:
+    """The passes of a small field's 2^log_n transform: :func:`pass_plan`
+    with the radix at most 2^``SMALL_MAX_PASS_LOG``."""
+    return pass_plan(log_n, min(max_pass_log, SMALL_MAX_PASS_LOG))
+
+
+def small_cols_log(rows: int, log_n: int, s: int, sms: int) -> int:
+    """log2 of the columns a block of a small-field pass takes (radix 2^s
+    over ``rows`` rows of 2^log_n points) on a card of ``sms``
+    multiprocessors: ``SMALL_MAX_COLS_LOG`` (at most 8 - s // 2: 256
+    threads a block), less while the pass would have fewer than
+    ``SMALL_BLOCKS_PER_SM`` blocks an SM."""
+    cols, lc = rows << (log_n - s), min(SMALL_MAX_COLS_LOG, 8 - s // 2)
+    while lc > 0 and (cols >> lc) < SMALL_BLOCKS_PER_SM * sms:
+        lc -= 1
+    return lc
+
+
 def dense_cols_log(rows: int, log_n: int, s: int, sms: int) -> int:
     """log2 of the columns a block of a dense pass takes (radix 2^s over
     ``rows`` rows of 2^log_n points) on a card of ``sms`` multiprocessors:
@@ -276,10 +325,12 @@ def _twist_split(s: int) -> int:
 def ntt_pass_plain(x: torch.Tensor, tables, ns_log: int, s: int) -> torch.Tensor:
     """One Stockham pass of radix 2^s over ``(L, rows, N)`` canonical limbs,
     after passes whose radices multiply to 2^ns_log, in torch ops on any
-    device (the arithmetic of ``tables.ops``).  The same pass as the kernel: the same gather
-    (x[j + t*N/2^s]), per-column twist tables Z_lo / Z_hi built from the
-    two-table root powers, bit-reversed radix-2 DIT stages (the first
-    multiplies by one and is skipped) and the same scatter."""
+    device (the arithmetic of ``tables.ops``).  The same pass as the kernels: the same gather
+    (x[j + t*N/2^s]) and scatter; the twists from per-column tables Z_lo /
+    Z_hi built from the two-table root powers, and the DFT as bit-reversed
+    radix-2 DIT stages (the first multiplies by one and is skipped), where
+    the small fields' kernel splits it into two DFTs in registers: field
+    values are exact, so the outputs are the same bits."""
     ar = tables.ops
     lim, rows, n = x.shape
     log_n = n.bit_length() - 1
@@ -324,7 +375,8 @@ def _check_operands(x: torch.Tensor, out: torch.Tensor, tables: Twiddles, ns_log
     if (n & (n - 1) or ns_log < 0 or min(plan) < 1 or ns_log + sum(plan) > n.bit_length() - 1
             or tables.lo.shape[1] * tables.hi.shape[1] != n
             or tables.lo_rows.device != x.device
-            or (_dense_ntt(tables.ops) and tables.powers is None)):
+            or (_dense_ntt(tables.ops) and tables.powers is None)
+            or (_small_ntt(tables.ops) and max(plan) > tables.dft.shape[0].bit_length() - 1)):
         raise ValueError(f"NTT pass: bad passes {plan} after 2^{ns_log}, or tables, for N={n}")
 
 
@@ -334,7 +386,8 @@ def _launch(x: torch.Tensor, out: torch.Tensor, buf, tables: Twiddles, ns_log: i
     each, x into out (through buf when there are two or more): kernel 1
     for Stark252 and (its dense entry, each pass on
     :func:`dense_cols_log` columns a block) BN254 Fr and BLS12-377 Fr,
-    kernel 7 for the small fields."""
+    kernel 7 for the small fields (each pass on :func:`small_cols_log`
+    columns a block)."""
     if x.shape[1] and _dense_ntt(tables.ops):
         log_n, sms = x.shape[2].bit_length() - 1, sm_count(x.device)
         cols_log = [dense_cols_log(x.shape[1], log_n, s, sms) for s in plan]
@@ -344,11 +397,14 @@ def _launch(x: torch.Tensor, out: torch.Tensor, buf, tables: Twiddles, ns_log: i
                       (ctypes.c_int * len(plan))(*plan),
                       (ctypes.c_int * len(plan))(*cols_log), len(plan), count=len(plan))
     elif x.shape[1] and tables.ops is not limbs:
+        log_n, sms = x.shape[2].bit_length() - 1, sm_count(x.device)
+        cols_log = [small_cols_log(x.shape[1], log_n, s, sms) for s in plan]
         native.launch("small_ntt", "lw_small_ntt_passes", tables.ops.kernel_id,
                       x.data_ptr(), out.data_ptr(), None if buf is None else buf.data_ptr(),
-                      tables.lo_rows.data_ptr(), tables.hi_rows.data_ptr(), x.shape[1],
-                      x.shape[2].bit_length() - 1, ns_log, (ctypes.c_int * len(plan))(*plan),
-                      len(plan), count=len(plan))
+                      tables.lo_rows.data_ptr(), tables.hi_rows.data_ptr(),
+                      tables.dft.data_ptr(), x.shape[1], log_n, ns_log,
+                      tables.dft.shape[0].bit_length() - 1, (ctypes.c_int * len(plan))(*plan),
+                      (ctypes.c_int * len(plan))(*cols_log), len(plan), count=len(plan))
     elif x.shape[1]:
         native.launch("ntt", "lw_ntt_passes", x.data_ptr(), out.data_ptr(),
                       None if buf is None else buf.data_ptr(), tables.lo_rows.data_ptr(),
@@ -371,11 +427,22 @@ def ntt_pass(x: torch.Tensor, out: torch.Tensor, tables: Twiddles, ns_log: int,
 # core transform
 # ---------------------------------------------------------------------------
 
+def plan_for(field: PrimeField, log_n: int, max_pass_log: int = MAX_PASS_LOG) -> list:
+    """The passes that :func:`fft_with_root` runs over ``field`` at
+    2^log_n points: :func:`dense_pass_plan` over a dense field,
+    :func:`small_pass_plan` over a small one, else :func:`pass_plan`."""
+    if _dense_ntt(field.ops):
+        return dense_pass_plan(log_n, max_pass_log)
+    if _small_ntt(field.ops):
+        return small_pass_plan(log_n, max_pass_log)
+    return pass_plan(log_n, max_pass_log)
+
+
 def _transform(x: torch.Tensor, field: PrimeField, root_int: int, max_pass_log: int,
                on_card: bool) -> torch.Tensor:
     n = x.shape[-1]
     log_n = n.bit_length() - 1
-    plan = (dense_pass_plan if _dense_ntt(field.ops) else pass_plan)(log_n, max_pass_log)
+    plan = plan_for(field, log_n, max_pass_log)
     if not plan:
         return x.clone()
     tables = twiddle_tables(field, root_int, log_n, x.device)
@@ -397,7 +464,7 @@ def fft_with_root(x: torch.Tensor, field: PrimeField, root_int: int,
                   max_pass_log: int = MAX_PASS_LOG) -> torch.Tensor:
     """Natural-order transform along the last axis with an explicit
     primitive root (any power-of-two length, any batch dims): the passes of
-    :func:`pass_plan` (:func:`dense_pass_plan` over a dense field), each
+    :func:`plan_for`, each
     one kernel launch on a CUDA tensor and :func:`ntt_pass_plain` on a CPU
     tensor."""
     return _transform(x, field, root_int, max_pass_log, x.device.type != "cpu")

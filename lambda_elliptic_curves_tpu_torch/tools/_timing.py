@@ -131,3 +131,21 @@ def random_field(shape: tuple, gen):
                       dtype=torch.int64).to(torch.int32)
     x[7] &= 0x07FFFFFF
     return x
+
+
+def random_small(limbs: int, p: int, shape: tuple, gen):
+    """``(limbs, *shape)`` int32 limbs of canonical values of a field p <
+    2^(32 limbs) (Goldilocks: 2, BabyBear: 1), drawn from the generator
+    ``gen`` on its device: BabyBear uniform in [0, p); Goldilocks two
+    32-bit halves, the high one below 2^32 - 1, so every value is below
+    2^64 - 2^32 < p."""
+    import torch
+
+    if limbs == 1:
+        x = torch.randint(0, p, (1,) + tuple(shape), generator=gen, device=gen.device,
+                          dtype=torch.int64)
+    else:
+        x = torch.randint(0, 1 << 32, (2,) + tuple(shape), generator=gen, device=gen.device,
+                          dtype=torch.int64)
+        x[1] %= (1 << 32) - 1
+    return x.to(torch.int32)

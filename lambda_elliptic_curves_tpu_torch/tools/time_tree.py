@@ -7,7 +7,8 @@ machine's run.
 Run as a script (not with ``-m``): it imports ``lambda_elliptic_curves_tpu_torch``
 from DIR (default: the checkout holding this file) and only through the
 entry points every version has: ``fields.Stark252``, ``ops.limbs.mont_pow``,
-``poly.ntt``, ``provers.stark.prove`` and ``native.launches``.  Times are
+``poly.ntt``, ``provers.stark.prove`` and ``native.launches`` (and, for a
+group of a later slice, that slice's entry points).  Times are
 CUDA-event means over repeated calls after one warm-up, unless said
 otherwise.  The groups, run in this order whatever order they are given in
 (default: all):
@@ -50,7 +51,21 @@ otherwise.  The groups, run in this order whatever order they are given in
   at 2^16 gates (as ``plonk``) and a warm Groth16 prove at 2^16
   constraints (as ``bucket``) under ``torch.profiler``: kernel 1's device
   ms and traced launches, its launch count (``native.launches``), busy and
-  wall ms (about two minutes).
+  wall ms (about two minutes);
+* ``small``: kernels 6 and 7 over the small fields (``fields.Goldilocks``,
+  ``fields.BabyBear``): fft at 2^20 points at 1, 2 and 4 rows and at 2^22
+  (BabyBear also 2^24), each after its tables are built, whole calls and
+  the passes' launches alone, and
+  ``batch_inverse`` at the prover's shapes, base ``(L, 2, 2^22)`` and E
+  ``(D L, 4, 2^22)`` (Goldilocks with Fp2, BabyBear with Fp4); then one
+  warm 2^20-row Fibonacci prove over Goldilocks + Fp2 and one over
+  BabyBear + Fp4 at ``ProofOptions(4, 32, 3, 0)`` under
+  ``torch.profiler``: kernels 6 and 7's device ms and traced launches,
+  their launch counts, busy and wall ms, and the inversions' part of
+  kernel 6: the prove's ``batch_inverse`` calls (recorded by wrapping
+  ``PrimeField.batch_inverse`` and ``DeviceQuadraticField.batch_inverse``
+  while it runs) timed again at their shapes on random values (about a
+  minute).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -64,11 +79,11 @@ import sys
 import time
 
 if __package__:
-    from ._timing import cache_bytes, cuda_ms, profile, random_field, smi
+    from ._timing import cache_bytes, cuda_ms, profile, random_field, random_small, smi
 else:  # run as a script: this file's folder heads sys.path, whatever DIR holds
-    from _timing import cache_bytes, cuda_ms, profile, random_field, smi
+    from _timing import cache_bytes, cuda_ms, profile, random_field, random_small, smi
 
-GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk", "dense_fft")
+GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk", "dense_fft", "small")
 
 
 class Failed(Exception):
@@ -336,8 +351,101 @@ def main() -> int:
             del prove_once
             torch.cuda.empty_cache()
 
+    def run_small():
+        from lambda_elliptic_curves_tpu_torch import fields
+        from lambda_elliptic_curves_tpu_torch.fields import extensions
+        from lambda_elliptic_curves_tpu_torch.fields import field as field_mod
+        from lambda_elliptic_curves_tpu_torch.provers.stark.extension import ChallengeBundle
+
+        proves = (("goldilocks_fp2", fields.Goldilocks, 2), ("babybear_fp4", fields.BabyBear, 4))
+        base_of = {f.p: f for _, f, _ in proves}
+
+        def values(fd, shape):
+            """Random canonical values of ``fd`` (a field or a tower over
+            one) as its (D L, *shape) limbs."""
+            lb = base_of[fd.p].num_limbs
+            x = random_small(lb, fd.p, (fd.num_limbs // lb,) + tuple(shape), gen)
+            return x.transpose(0, 1).reshape((fd.num_limbs,) + tuple(shape))
+
+        for name, f, degree in proves:
+            fd = ChallengeBundle(f, degree).fd
+            shapes = [(20, 1), (20, 2), (20, 4), (22, 1)] + ([(24, 1)] if degree == 4 else [])
+            # the plan the tree's fft runs (a tree before plan_for: pass_plan)
+            plan_of = getattr(ntt, "plan_for", lambda _, log_n: ntt.pass_plan(log_n))
+            for log_n, rows in shapes:
+                x = values(f, (rows, 1 << log_n))
+                reps = 20 if log_n < 22 else 10
+                key = f"{f.name} fft 2^{log_n} x {rows}"
+                rec[key + " ms"] = cuda_ms(lambda: ntt.fft(x, f), reps)
+                # the passes' launches alone, on buffers allocated once (a
+                # whole call's host work outlasts its kernels at 2^20)
+                tables = ntt.twiddle_tables(f, f.params.primitive_root_of_unity(log_n), log_n,
+                                            dev)
+                cur = x.reshape(f.num_limbs, rows, 1 << log_n)
+                out, buf = torch.empty_like(cur), torch.empty_like(cur)
+                rec[key + " passes"] = plan_of(f, log_n)
+                rec[key + " kernels ms"] = cuda_ms(lambda: ntt._launch(
+                    cur, out, buf, tables, 0, plan_of(f, log_n)), reps)
+                del x, cur, out, buf
+            base, ext = values(f, (2, 1 << 22)), values(fd, (4, 1 << 22))
+            rec[f"{f.name} batch_inverse base (L, 2, 2^22) ms"] = cuda_ms(
+                lambda: f.batch_inverse(base), 5)
+            rec[f"{name} batch_inverse E (D L, 4, 2^22) ms"] = cuda_ms(
+                lambda: fd.batch_inverse(ext), 5)
+            del base, ext
+            torch.cuda.empty_cache()
+        for name, f, degree in proves:
+            air_s, pub_s = fibonacci_air_for(f, degree), FibonacciPublicInputs(a0=1, a1=1)
+            trace = fibonacci_trace(f, [1, 1], 1 << 20, dev)
+            prove(air_s, trace, pub_s, opts, DefaultTranscript(f), device=dev)  # tables built
+            torch.cuda.synchronize()
+            calls, taps = [], {}
+            for cls in (field_mod.PrimeField, extensions.DeviceQuadraticField):
+                def tap(self, a, _orig=cls.batch_inverse):
+                    calls.append((self, tuple(a.shape)))
+                    return _orig(self, a)
+                taps[cls] = cls.batch_inverse
+                cls.batch_inverse = tap
+            for k in native.launches:
+                native.launches[k] = 0
+            try:
+                proof, stats = profile(lambda: prove(air_s, trace, pub_s, opts,
+                                                     DefaultTranscript(f), device=dev), top=60)
+            finally:
+                for cls, orig in taps.items():
+                    cls.batch_inverse = orig
+            if not verify(air_s, proof, pub_s, opts, DefaultTranscript(f)):
+                raise Failed(f"verify rejected the traced {name} proof")
+            launches = dict(native.launches)
+            inv_ms = []
+            for obj, shape in calls:
+                x = values(obj, shape[1:])
+                inv_ms.append(cuda_ms(lambda: obj.batch_inverse(x), 5))
+                del x
+
+            def of(mark):
+                hit = [v for k, v in stats["by_kernel"].items() if mark in k]
+                return sum(v["ms"] for v in hit), sum(v["launches"] for v in hit)
+
+            k6_ms, k6_traced = of("small_field")
+            k7_ms, k7_traced = of("small_ntt")
+            rec[f"prove_2^20_{name}"] = {
+                "kernel_6_device_ms": k6_ms, "kernel_6_traced_launches": k6_traced,
+                "kernel_6_launches": launches["small_field"],
+                "kernel_6_inv_kernel_device_ms": of("small_field_inv")[0],
+                "inversions": [{"shape": list(shape), "ms": ms}
+                               for (_, shape), ms in zip(calls, inv_ms)],
+                "inversions_ms": sum(inv_ms),
+                "inversion_share_of_kernel_6": sum(inv_ms) / k6_ms if k6_ms else None,
+                "kernel_7_device_ms": k7_ms, "kernel_7_traced_launches": k7_traced,
+                "kernel_7_launches": launches["small_ntt"],
+                "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
+            del trace, proof
+            torch.cuda.empty_cache()
+
     runs = {"prove": run_prove, "fft": run_fft, "field": run_field, "inverse": run_inverse,
-            "bucket": run_bucket, "plonk": run_plonk, "dense_fft": run_dense_fft}
+            "bucket": run_bucket, "plonk": run_plonk, "dense_fft": run_dense_fft,
+            "small": run_small}
     try:
         for group in GROUPS:
             if group in groups:

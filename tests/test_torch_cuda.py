@@ -379,6 +379,45 @@ def test_small_field_kernel_matches_plain(dev, name, degree):
     assert sum(native.launches.values()) == len(cases)
 
 
+def _small_inverse_geometry(arith, degree):
+    """(threads, elements) of a block of kernel 6's inversion kernel."""
+    import ctypes
+
+    info = (ctypes.c_int * 5)()
+    assert native.cuda_lib().lw_small_field_info(arith.kernel_id, degree, 1, info) == 0
+    return info[0], info[4]
+
+
+@pytest.mark.parametrize("name, degree", [(n, d) for n in sorted(_SMALL) for d in (1, 2, 4)])
+def test_small_batch_inverse_kernel_zero_patterns(dev, name, degree):
+    """Kernel 6's batch inversion at 2^20 elements, one launch a call,
+    bitwise against the plain version (Montgomery's trick over the whole
+    batch, composed through the tower): random values, zeros laid on the
+    kernel's blocks (each of a thread's positions, a whole block, every
+    element), a size that is no multiple of a block's elements, and one
+    value read with element stride 0."""
+    field, arith = _SMALL[name]
+    fd = _tower(field, degree)
+    plain = fd.plain()
+    threads, per_block = _small_inverse_geometry(arith, degree)
+    n = 1 << 20
+    a = _small_values(field, n, 5, degree).to(dev)
+    first = torch.zeros(n, dtype=torch.bool)
+    first[per_block + 3 + threads * torch.arange(per_block // threads)] = True
+    block = torch.zeros(n, dtype=torch.bool)
+    block[2 * per_block:3 * per_block] = True
+    cases = [a, a[:, 7:].contiguous(), a[:, 9:10].expand(-1, n)]
+    for mask in (first, block, torch.ones(n, dtype=torch.bool)):
+        z = a.clone()
+        z[:, mask.to(dev)] = 0
+        cases.append(z)
+    for i, x in enumerate(cases):
+        native.launches.update({k: 0 for k in native.launches})
+        got = fd.batch_inverse(x)
+        assert native.launches["small_field"] == 1
+        assert torch.equal(got, plain.batch_inverse(x.contiguous())), i
+
+
 @pytest.mark.parametrize("name", sorted(_SMALL))
 def test_small_ntt_pass_kernel_matches_plain(dev, name):
     field, _ = _SMALL[name]
@@ -388,14 +427,15 @@ def test_small_ntt_pass_kernel_matches_plain(dev, name):
         for rows in (1, 3):
             x = _small_values(field, rows << log_n, log_n).reshape(field.num_limbs, rows, -1)
             x = x.to(dev)
-            for max_pass_log in (ntt.MAX_PASS_LOG, 3):
+            # the fft's plan, radix-2^8 passes (the kernel's largest), radix <= 2^3
+            for plan in (ntt.plan_for(field, log_n), ntt.pass_plan(log_n, ntt.SMALL_DFT_LOG),
+                         ntt.pass_plan(log_n, 3)):
                 cur, ns_log = x, 0
-                for s in ntt.pass_plan(log_n, max_pass_log):
+                for s in plan:
                     got = ntt.ntt_pass(cur, torch.empty_like(cur), tables, ns_log, s)
                     assert torch.equal(got, ntt.ntt_pass_plain(cur, tables, ns_log, s))
                     cur, ns_log = got, ns_log + s
-                assert torch.equal(cur.cpu(), ntt.fft_with_root(x.cpu(), field, root,
-                                                                max_pass_log))
+                assert torch.equal(cur.cpu(), ntt.fft_with_root(x.cpu(), field, root))
 
 
 @pytest.mark.parametrize("name", sorted(_SMALL))
@@ -405,7 +445,7 @@ def test_small_fft_round_trip_and_launches(dev, name):
     native.launches.update({k: 0 for k in native.launches})
     y = ntt.fft(x, field)
     torch.cuda.synchronize()
-    assert native.launches["small_ntt"] == len(ntt.pass_plan(16))
+    assert native.launches["small_ntt"] == len(ntt.plan_for(field, 16)) == 3
     assert sum(native.launches.values()) == native.launches["small_ntt"]
     assert torch.equal(ntt.ifft(y, field), x)
 
@@ -434,7 +474,8 @@ def test_extension_proof_on_card_equals_cpu_proof_at_2_12_rows(dev, field, degre
     assert proofs[0] == proofs[1]
     counts = dict(native.launches)
     assert counts["small_field"] > 0 and counts["small_ntt"] > 0 and counts["keccak"] > 0
-    assert all(counts[k] == 0 for k in ("field", "field_pow", "field_inv", "ntt", "grind"))
+    assert all(v == 0 for k, v in counts.items() if k not in ("small_field", "small_ntt",
+                                                               "keccak"))
 
 
 # -- BN254: kernel 1 over Fr, kernels 8 and 9, MSM and Plonk on the card ------

@@ -11,12 +11,17 @@ package; kernels 6 and 7 built for the host with ``g++``.
 * the port copies of the ``ChallengeBundle`` unit tests of
   ``tests/test_stark_extension.py``;
 * ``csrc/small_field.cuh``'s per-element op (every op, both fields,
-  degrees 1, 2 and 4, a broadcast operand among them) and
-  ``csrc/small_ntt.cuh``'s pass block (every pass of sizes 2^1 .. 2^10 at
-  several radices and tile widths, 1 to 3 rows), compiled with ``g++`` and
-  held against the plain versions.  The arithmetic there is plain C++ (no
-  carry-chain instructions), so the host build runs what the card runs.
-  Skips without ``g++``.
+  degrees 1, 2 and 4, a broadcast operand among them), its batch-inversion
+  block (``lw_sf_inv_block``: both fields, degrees 1, 2 and 4, at several
+  threads a block and elements a thread, over random values, the edge
+  values and zero patterns laid on the block's own chunks, ragged sizes
+  and an operand read with element stride 0) and ``csrc/small_ntt.cuh``'s
+  pass block (every pass of sizes 2^1 .. 2^12 at 1 to 4 rows, under the
+  fft's plan and at radices of at most 2^1 and 2^3, forward and inverse
+  root, at several tile widths), compiled with ``g++`` and held against
+  the plain versions.  The arithmetic there is plain C++ (no carry-chain
+  instructions), so the host build runs what the card runs.  Skips
+  without ``g++``.
 
 Tolerance: exact equality everywhere.
 """
@@ -292,21 +297,63 @@ extern "C" void field_op(int field, int degree, int op, const int32_t* a, long a
         ops<LwBabyBear>(degree, op, a, a_ls, a_es, b, b_ls, b_es, out, n, nr, w, nbits);
 }
 
+template <class F, int D, int K, int THREADS>
+static void inv_blocks(const int32_t* a, long a_ls, long a_es, int32_t* out, long n,
+                       uint64_t nr) {
+    // the tree starts as garbage, as shared memory does
+    std::vector<typename F::T> tree(2 * THREADS, (typename F::T)0x5A5A5A5A5A5A5A5Aull);
+    const long per_block = (long)THREADS * K;
+    for (long b = 0; b < (n + per_block - 1) / per_block; b++)
+        lw_sf_inv_block<F, D, K, THREADS>(a, a_ls, a_es, out, n, (typename F::T)nr, b, THREADS,
+                                          0, 1, tree.data());
+}
+
+template <class F, int D>
+static int inv_degree(int shape, const int32_t* a, long a_ls, long a_es, int32_t* out, long n,
+                      uint64_t nr) {
+    switch (shape) {  // (threads, elements a thread)
+        case 0: inv_blocks<F, D, 1, 1>(a, a_ls, a_es, out, n, nr); return 0;
+        case 1: inv_blocks<F, D, 3, 4>(a, a_ls, a_es, out, n, nr); return 0;
+        case 2: inv_blocks<F, D, 4, 32>(a, a_ls, a_es, out, n, nr); return 0;
+        case 3: inv_blocks<F, D, (D == 1 ? 8 : 16 / D), 128>(a, a_ls, a_es, out, n, nr); return 0;
+        default: return 1;
+    }
+}
+
+extern "C" int field_inv(int field, int degree, int shape, const int32_t* a, long a_ls,
+                         long a_es, int32_t* out, long n, uint64_t nr) {
+    if (field == 0) {
+        if (degree == 1) return inv_degree<LwGoldilocks, 1>(shape, a, a_ls, a_es, out, n, nr);
+        if (degree == 2) return inv_degree<LwGoldilocks, 2>(shape, a, a_ls, a_es, out, n, nr);
+        return inv_degree<LwGoldilocks, 4>(shape, a, a_ls, a_es, out, n, nr);
+    }
+    if (degree == 1) return inv_degree<LwBabyBear, 1>(shape, a, a_ls, a_es, out, n, nr);
+    if (degree == 2) return inv_degree<LwBabyBear, 2>(shape, a, a_ls, a_es, out, n, nr);
+    return inv_degree<LwBabyBear, 4>(shape, a, a_ls, a_es, out, n, nr);
+}
+
 template <class F>
 static void pass(const LwSmallNttPass& P) {
-    std::vector<typename F::T> sm(lw_sntt_smem_values(P.s, P.log_c));
     long cols = P.rows << (P.log_n - P.s);
-    for (long b = 0; b < (cols + (1L << P.log_c) - 1) >> P.log_c; b++)
+    for (long b = 0; b < (cols + (1L << P.log_c) - 1) >> P.log_c; b++) {
+        // the tile starts as garbage, as shared memory does
+        std::vector<typename F::T> sm(lw_sntt_smem_values(P.s, P.log_c),
+                                      (typename F::T)0x5A5A5A5A5A5A5A5Aull);
         lw_sntt_pass_block<F>(P, b, 0, 1, sm.data());
+    }
 }
 
 extern "C" void ntt_pass(int field, const int32_t* x, int32_t* out, const int32_t* t_lo,
-                         const int32_t* t_hi, long rows, int log_n, int ns_log, int s,
-                         int log_c) {
-    LwSmallNttPass P = {x, out, t_lo, t_hi, rows, log_n, ns_log, s, log_c};
+                         const int32_t* t_hi, const int32_t* dft, long rows, int log_n,
+                         int ns_log, int s, int log_c, int dft_log) {
+    LwSmallNttPass P = {x, out, t_lo, t_hi, dft, rows, log_n, ns_log, s, log_c, dft_log};
     if (field == 0) pass<LwGoldilocks>(P); else pass<LwBabyBear>(P);
 }
 """
+
+#: (threads a block, elements a thread) of the host builds of the
+#: inversion block: ``inv_degree``'s shapes 0-3 (3: the card's)
+_INV_SHAPES = ((1, 1), (4, 3), (32, 4), (128, None))
 
 
 @pytest.fixture(scope="module")
@@ -326,7 +373,9 @@ def host_lib(tmp_path_factory):
     P, L, I, U = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_uint64
     lib.field_op.argtypes = [I, I, I, P, L, L, P, L, L, P, L, U, P, I]
     lib.field_op.restype = None
-    lib.ntt_pass.argtypes = [I, P, P, P, P, L, I, I, I, I]
+    lib.field_inv.argtypes = [I, I, I, P, L, L, P, L, U]
+    lib.field_inv.restype = I
+    lib.ntt_pass.argtypes = [I, P, P, P, P, P, L, I, I, I, I, I]
     lib.ntt_pass.restype = None
     return lib
 
@@ -368,18 +417,82 @@ def test_host_field_op_equals_plain(host_lib, name, degree):
     assert torch.equal(op(small._OP_SQUARE, a), fd.square(a))
     for e in (0, 1, 2, 65537, F.p + 11) + ((order - 1,) if degree == 1 else ()):
         assert torch.equal(op(small._OP_POW, a, exponent=e), fd.pow(a, e)), e
-    assert torch.equal(op(small._OP_INV, a), fd.batch_inverse(a))
+    # an inversion is no element op: the card runs it as the inversion block
+    assert torch.equal(_host_inv(host_lib, S, degree, 3, a, nr), fd.batch_inverse(a))
     c = b[:, 7:8].contiguous()
     assert torch.equal(op(small._OP_MUL, a, c, b_scalar=True), fd.mul(a, c))
     assert torch.equal(op(small._OP_SUB, a, c, b_scalar=True), fd.sub(a, c))
 
 
+def _host_inv(lib, S, degree, shape, a, nr, stride0=False):
+    """The inversion block over (D L, n) CPU tensor ``a``, block by block;
+    with ``stride0`` a (D L, 1) ``a`` read with element stride 0 for
+    ``stride0`` elements."""
+    an = np.ascontiguousarray(a.numpy())
+    n = stride0 or an.shape[1]
+    out = np.full((an.shape[0], n), 0x5A5A5A5A, dtype=np.int32)
+    ls, es = (1, 0) if stride0 else (n, 1)
+    assert lib.field_inv(S.kernel_id, degree, shape, an.ctypes.data, ls, es, out.ctypes.data,
+                         n, int(nr) * S.R % S.P) == 0
+    return torch.from_numpy(out)
+
+
+def _zero_patterns(n: int, threads: int, k: int) -> dict:
+    """Boolean masks of the elements set to zero, laid on the inversion
+    block's chunks (a block takes threads * k elements; thread t takes
+    t, t + threads, ...)."""
+    per_block = threads * k
+    first = np.zeros(n, bool)  # thread 1 of block 0: a zero at each of its first k positions
+    for j in range(k):
+        first[min(1 + j * threads, n - 1)] = True
+    block = np.zeros(n, bool)  # the whole second block (or the first, when there is one)
+    b0 = per_block if n > per_block else 0
+    block[b0:b0 + per_block] = True
+    sparse = np.zeros(n, bool)
+    sparse[::7] = True
+    return {"first k of a thread": first, "a whole block": block, "every seventh": sparse,
+            "all": np.ones(n, bool)}
+
+
+@pytest.mark.parametrize("name, degree", [(n, d) for n in sorted(FIELDS) for d in (1, 2, 4)])
+def test_host_inverse_block_equals_plain(host_lib, name, degree):
+    """Kernel 6's inversion block (Montgomery's trick inside a block)
+    against ``batch_inverse_plain`` composed through the tower: random
+    values with the edge values 0, 1, p - 1, p - 2 in every component, the
+    zero patterns of ``_zero_patterns``, sizes that are not a multiple of a
+    block's elements, at four (threads, elements a thread) shapes, and an
+    operand read with element stride 0."""
+    F, _, S = FIELDS[name]
+    fd = F if degree == 1 else ChallengeBundle(F, degree).fd
+    nr = 0 if degree == 1 else (fd.non_residue if degree == 2 else fd.base.non_residue)
+    rng = random.Random(71 * degree + S.kernel_id)
+    for shape, (threads, k) in enumerate(_INV_SHAPES):
+        k = k or (8 if degree == 1 else 16 // degree)
+        per_block = threads * k
+        for n in sorted({1, max(per_block - 1, 2), 2 * per_block + 3, 700}):
+            xs = [_ext_value(rng, F.p, degree) for _ in range(n)]
+            for i, v in enumerate([0, 1, F.p - 1, F.p - 2][:n]):
+                xs[i] = _nest([v] * degree, degree) if degree > 1 else v
+            a = fd.array(xs, "cpu")
+            assert torch.equal(_host_inv(host_lib, S, degree, shape, a, nr),
+                               fd.batch_inverse(a)), (shape, n)
+            for what, mask in _zero_patterns(n, threads, k).items():
+                z = a.clone()
+                z[:, torch.from_numpy(mask)] = 0
+                assert torch.equal(_host_inv(host_lib, S, degree, shape, z, nr),
+                                   fd.batch_inverse(z)), (shape, n, what)
+        c = a[:, 5:6].contiguous()  # one value, read with element stride 0
+        assert torch.equal(_host_inv(host_lib, S, degree, shape, c, nr, stride0=per_block + 9),
+                           fd.batch_inverse(c.expand(-1, per_block + 9).contiguous()))
+
+
 def _host_pass(lib, S, x, tables, ns_log, s, log_c):
     xn = np.ascontiguousarray(x.numpy())
     out = np.full_like(xn, 0x5A5A5A5A)  # the block must write every point
-    lo, hi = tables.lo_rows.numpy(), tables.hi_rows.numpy()
+    lo, hi, dft = tables.lo_rows.numpy(), tables.hi_rows.numpy(), tables.dft.numpy()
     lib.ntt_pass(S.kernel_id, xn.ctypes.data, out.ctypes.data, lo.ctypes.data, hi.ctypes.data,
-                 x.shape[1], x.shape[2].bit_length() - 1, ns_log, s, log_c)
+                 dft.ctypes.data, x.shape[1], x.shape[2].bit_length() - 1, ns_log, s, log_c,
+                 dft.shape[0].bit_length() - 1)
     return torch.from_numpy(out)
 
 
@@ -392,7 +505,7 @@ def test_host_ntt_block_equals_ntt_pass_plain(host_lib, name, rows):
         x = F.array(np.array(vals, dtype=object).reshape(rows, 1 << log_n), "cpu")
         root = F.params.primitive_root_of_unity(log_n)
         tables = ntt.twiddle_tables(F, root, log_n, "cpu")
-        for max_pass_log, log_c in ((1, 4), (3, 0), (4, 2), (8, 3)):
+        for max_pass_log, log_c in ((1, 4), (3, 0), (4, 2), (8, 3), (8, 5)):
             cur, ns_log = x, 0
             for s in ntt.pass_plan(log_n, max_pass_log):
                 got = _host_pass(host_lib, S, cur, tables, ns_log, s, log_c)
@@ -400,6 +513,31 @@ def test_host_ntt_block_equals_ntt_pass_plain(host_lib, name, rows):
                     (log_n, max_pass_log, log_c, s, ns_log)
                 cur, ns_log = got, ns_log + s
             assert torch.equal(cur, ntt.fft_with_root(x, F, root, max_pass_log))
+
+
+@pytest.mark.parametrize("rows", [2, 4])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_host_ntt_block_fft_plan_both_roots(host_lib, name, rows):
+    """Every pass of 2^1 .. 2^12 at 2 and 4 rows under the fft's own plan
+    (``plan_for``) on the columns a card of 132 SMs (an H100) or of 2 SMs
+    would take (``small_cols_log``), and at radices of at most 2^3, with
+    the forward and the inverse root."""
+    F, _, S = FIELDS[name]
+    for log_n in range(1, 13):
+        vals = _values(F.p, rows << log_n, 300 * log_n + rows)
+        x = F.array(np.array(vals, dtype=object).reshape(rows, 1 << log_n), "cpu")
+        w = F.params.primitive_root_of_unity(log_n)
+        for root in (w, pow(w, F.p - 2, F.p)):
+            tables = ntt.twiddle_tables(F, root, log_n, "cpu")
+            for max_pass_log, sms in ((ntt.MAX_PASS_LOG, 132), (ntt.MAX_PASS_LOG, 2), (3, 2)):
+                cur, ns_log = x, 0
+                for s in ntt.plan_for(F, log_n, max_pass_log):
+                    log_c = ntt.small_cols_log(rows, log_n, s, sms)
+                    got = _host_pass(host_lib, S, cur, tables, ns_log, s, log_c)
+                    assert torch.equal(got, ntt.ntt_pass_plain(cur, tables, ns_log, s)), \
+                        (log_n, max_pass_log, log_c, s, ns_log)
+                    cur, ns_log = got, ns_log + s
+                assert torch.equal(cur, ntt.fft_with_root(x, F, root, max_pass_log))
 
 
 @pytest.mark.parametrize("name", sorted(FIELDS))
