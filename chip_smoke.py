@@ -44,9 +44,13 @@ Phases (one result line each, with its seconds):
      bound and the plan's bytes floor, and reports
      each pass's grid, threads, registers and occupancy at the prover's
      2^20 and 2^22 points, 1, 2 and 4 rows; 2i holds
-     kernels 8 (BN254 Fr and Fq ops) and 9 (their batch inversion) against
-     their plain versions at 2^18 and 2^22 elements and times them against
-     their bounds; 2j holds kernel 1's BN254 Fr entry against
+     kernels 8 (BN254 Fr and Fq ops) and 9 (their batch inversion, one
+     launch a call) against their plain versions at 2^18 and 2^22
+     elements, times their launches alone (the C entries in a loop) at
+     2^16, 2^17, 2^18 and 2^22 beside whole calls, against the bound at
+     dense32.cuh's SASS with the fixed count beside it, and kernel 8's
+     program entry on Plonk's round-3 quotient at 2^18 against
+     ``program_plain`` (one launch), timed the same way; 2j holds kernel 1's BN254 Fr entry against
      ``ntt_pass_plain`` at every pass of every size 2^1 .. 2^20, forward
      and inverse root, the fft at 2^18 against the plain transform, and
      times the fft's passes alone (``ms``) and whole calls at 2^16, 2^18 and
@@ -58,9 +62,10 @@ Phases (one result line each, with its seconds):
      (``fixed_bound_ms``: 490 instructions a product, 48 a sum), and
      reports each pass's grid, registers and occupancy at 2^16 .. 2^18 (at
      least 132 blocks a pass); 2k and 2l do the same over
-     BLS12-377 (kernels 8 and 9 over Fr and over Fq on six words, kernel 1
-     over Fr; every pass and the fft, both roots, also at the QAP's 3 rows
-     at 2^16 and 2^17; the fft checked at 2^17 and timed at 2^16, 2^17,
+     BLS12-377 (kernels 8 and 9 over Fr and over Fq on six words, kernel
+     8's programs on Groth16's t and h at 2^17, kernel 1 over Fr; every
+     pass and the fft, both roots, also at the QAP's 3 rows at 2^16 and
+     2^17; the fft checked at 2^17 and timed at 2^16, 2^17,
      2^18, 2^22); 2m holds kernel 10 (``csrc/curve.cu``: a group op a
      launch) against the plain group law for the addition, the mixed
      addition, the doubling and an operand broadcast, for BN254 G1 and G2
@@ -126,9 +131,10 @@ Phases (one result line each, with its seconds):
      ``field_pow``; the small-field proves launch kernels 6 and 7 and
      Keccak, and no Stark252 kernel; the Plonk prove launches kernel 1's
      BN254 Fr entry and kernels 8, 9 and 11 and nothing of the STARK paths,
-     its SRS kernel 10; the Groth16 prove the BLS12-377 instances of
-     kernels 1, 8, 9 and 11 and nothing else, kernel 8 fewer than 1,000
-     times, its setup kernel 10)
+     its round-3 quotient one launch of kernel 8's program entry, its SRS
+     kernel 10; the Groth16 prove the BLS12-377 instances of kernels 1, 8,
+     9 and 11 and nothing else, kernel 8 fewer than 1,000 times and its
+     program entry twice (t and h), its setup kernel 10)
   7. a torch.profiler trace of one warm prove at 2^16 and at 2^20 rows, at
      2^20 rows at the preset, of both small-field 2^20-row proves, of a
      warm Plonk prove at 2^16 gates and of a warm Groth16 prove at 2^16
@@ -147,6 +153,7 @@ non-zero without that line.  Exits non-zero at once without a CUDA card.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -177,13 +184,17 @@ KERNELS = {
                   "replaces": "lambda_elliptic_curves_tpu/poly/ntt_pallas.py:164"},
     "dense_field": {"source": f"{CSRC}/dense_field.cu",
                     "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:750"},
-    "dense_inv": {"source": f"{CSRC}/batch_inverse.cu",
+    "dense_program": {"source": f"{CSRC}/dense_field.cu",
+                      "replaces": "lambda_elliptic_curves_tpu/provers/plonk/prover.py:124"},
+    "dense_inv": {"source": f"{CSRC}/dense_inverse.cu",
                   "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:895"},
     "dense_ntt_bls12_377": {"source": f"{CSRC}/ntt.cu",
                             "replaces": "lambda_elliptic_curves_tpu/poly/ntt_pallas.py:164"},
     "dense_field_bls12_377": {"source": f"{CSRC}/dense_field.cu",
                               "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:750"},
-    "dense_inv_bls12_377": {"source": f"{CSRC}/batch_inverse.cu",
+    "dense_program_bls12_377": {"source": f"{CSRC}/dense_field.cu",
+                                "replaces": "lambda_elliptic_curves_tpu/provers/groth16/qap.py:95"},
+    "dense_inv_bls12_377": {"source": f"{CSRC}/dense_inverse.cu",
                             "replaces": "lambda_elliptic_curves_tpu/ops/limbs.py:895"},
     "curve_op": {"source": f"{CSRC}/curve.cu",
                  "replaces": "lambda_elliptic_curves_tpu/curves/weierstrass.py:284"},
@@ -203,15 +214,15 @@ SMALL_KERNELS = ("small_field", "small_ntt", "keccak")
 #: kernels 8, 9 and 11: the KZG commitments' Pippenger), the kernel of its
 #: SRS (kernel 10: the comb's mixed additions), and the log2 of the gates
 #: of phase 5g's circuit
-BN254_KERNELS = ("dense_ntt", "dense_field", "dense_inv", "msm_bucket")
+BN254_KERNELS = ("dense_ntt", "dense_field", "dense_program", "dense_inv", "msm_bucket")
 BN254_SETUP_KERNELS = ("curve_op",)
 PLONK_LOG_GATES = 16
 #: the kernels of the Groth16 proves over BLS12-377 (the same four kernels'
 #: BLS12-377 instances: Fr on four words, Fq on six), the kernel of its
 #: setup (kernel 10: the combs), and the log2 of the constraints of phase
 #: 5i's circuit and of the points of phase 5h's MSMs
-BLS_KERNELS = ("dense_ntt_bls12_377", "dense_field_bls12_377", "dense_inv_bls12_377",
-               "msm_bucket_bls12_377")
+BLS_KERNELS = ("dense_ntt_bls12_377", "dense_field_bls12_377", "dense_program_bls12_377",
+               "dense_inv_bls12_377", "msm_bucket_bls12_377")
 BLS_SETUP_KERNELS = ("curve_op_bls12_377",)
 GROTH16_LOG_CONSTRAINTS = 16
 G2_MSM_LOG_POINTS = 16
@@ -384,9 +395,11 @@ def phase_build(state):
             native.build_seconds.items(), key=lambda kv: -kv[1])}
         state["ptxas"] = {src: _ptxas_summary(native.build_log.get(src, ""))
                           for src in CURVE_SOURCES}
+        state["ptxas"].update({src: _ptxas_kernels(native.build_log.get(src, ""))
+                               for src in ("dense_field.cu", "dense_inverse.cu")})
         return (f"kernels built in {state['build_s']:.1f}s from {CSRC}/*.cu; seconds by "
-                f"source: {json.dumps(state['build_seconds'])}; the curve kernels' registers "
-                f"and spills: {json.dumps(state['ptxas'])}")
+                f"source: {json.dumps(state['build_seconds'])}; the curve and dense kernels' "
+                f"registers, stack and spills: {json.dumps(state['ptxas'])}")
     run()
 
 
@@ -417,6 +430,29 @@ def _ptxas_summary(log: str) -> dict:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             out[name] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _ptxas_kernels(log: str) -> dict:
+    """Kernel (its mangled name) -> registers, stack frame and spill bytes,
+    from a source's ``nvcc -Xptxas -v`` output (kernels 8 and 9: the
+    program's slots are its stack frame)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            out[name] = {"stack": int(m.group(1)), "spill_stores": int(m.group(2)),
+                         "spill_loads": int(m.group(3))}
         m = re.search(r"Used (\d+) registers", line)
         if m and name in out:
             out[name]["registers"] = int(m.group(1))
@@ -1459,6 +1495,67 @@ def _dense_bound(state, n: int, muls: int, adds: int = 0, values: int = 3, words
     return bound(state, 8.0 * words * values * n, ops((muls, mul_ops), (adds, add_ops)))
 
 
+#: Plonk's round-3 quotient's evaluations and constants
+#: (provers/plonk/prover.py's quotient_evaluations)
+QUOTIENT_EVALS = ("a", "b", "c", "ql", "qr", "qm", "qo", "qc", "pi", "x", "z", "zw", "s1", "s2",
+                  "s3", "l1", "zh_inv")
+QUOTIENT_CONSTS = ("beta", "gamma", "k1", "k2", "alpha", "one")
+
+
+def _sass_field(f) -> str:
+    """The field whose dense32.cuh SASS (tools/dense_mul.py) counts ``f``'s
+    product: its own, BN254 Fq at BN254 Fr's (same width, the tool builds
+    no BN254 Fq product)."""
+    return {"bn254_scalar": "bn254_fr", "bn254_base": "bn254_fr",
+            "bls12_377_scalar": "bls12_377_fr", "bls12_377_base": "bls12_377_fq"}[f.ops.name]
+
+
+def _dense_op_times(state, f, n: int, ms: float, muls: int, adds: int = 0,
+                    values: int = 3) -> dict:
+    """A kernel 8 or 9 reading ``ms`` against its bounds: the larger of
+    ``values`` values of n elements moved and ``muls`` products and ``adds``
+    sums at dense32.cuh's SASS (a sum half a butterfly), and beside it the
+    fixed count (490 / 1071 instructions a product, 48 / 72 a sum)."""
+    from lambda_elliptic_curves_tpu_torch.tools import dense_mul
+
+    key = f"{_sass_field(f)} {dense_mul.VARIANTS[1]}"
+    prod = dense_mul.sass_ops(state["dense_mul_sass"][key])
+    half = tuple(v / 2 for v in dense_mul.sass_ops(state["dense_mul_sass"][key + " butterfly"]))
+    b_ms, b_by = bound(state, 4.0 * f.num_limbs * values * n, ops((muls, prod), (adds, half)))
+    fixed_ms, _ = _dense_bound(state, n, muls, adds, values=values, words=f.ops.WORDS)
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+            "fixed_bound_ms": fixed_ms, "fixed_share": fixed_ms / ms,
+            "counts": f"{values} values of {4 * f.num_limbs} B an element; {muls} products at "
+                      f"{prod} and {adds} sums at {half} (multiply-adds, logic, other; "
+                      f"dense32.cuh's SASS, a sum half a butterfly)"}
+
+
+def _program_launch(f, ch, out):
+    """A closure that launches ``ch``'s program into ``out`` through the C
+    entry alone (its arguments built once)."""
+    import torch
+    from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.ops import dense
+
+    L, n = f.num_limbs, out[0].numel()
+    batch = tuple(out.shape[1:])
+    ops_, dst, src_a, src_b, out_slot = dense._schedule(ch.steps_encoded(), len(ch.inputs))
+    operands = [f.ops._operand(t, L, batch, n) for t in ch.inputs]
+    k, m = len(operands), len(ops_)
+    u8 = lambda v: (ctypes.c_uint8 * m)(*v)  # noqa: E731
+    args = (f.ops.kernel_id, k, (ctypes.c_void_p * k)(*[t.data_ptr() for t, _, _ in operands]),
+            (ctypes.c_long * k)(*[ls for _, ls, _ in operands]),
+            (ctypes.c_long * k)(*[es for _, _, es in operands]), m, u8(ops_), u8(dst),
+            u8(src_a), u8(src_b), out_slot, out.data_ptr(), n)
+    lib = native.cuda_lib()
+
+    def launch():
+        rc = lib.lw_dense_field_program(*args, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"lw_dense_field_program: CUDA error {rc}")
+    launch.operands = operands  # the tensors whose pointers args holds
+    return launch
+
+
 #: phases 2i / 2j (BN254, the Plonk slice) and 2k / 2l (BLS12-377, the
 #: Groth16 slice): their names, the fft sizes timed, the shapes that the
 #: kernels line reports (field, log2 n, what the shape is), and the rows a
@@ -1468,7 +1565,10 @@ DENSE_CURVES = {
               "fft_logs": (16, 18, 22), "fft_line": (18, "Plonk's 4n"), "prove_rows": {},
               "mul_line": ("fr", 18, "BN254 Fr mul, 2^18 elements (Plonk's round-3 quotient "
                            "at 4n, 2^16 gates)"),
-              "inv_line": ("fr", 18, "BN254 Fr, 2^18 elements (Plonk's 4n at 2^16 gates)")},
+              "inv_line": ("fr", 18, "BN254 Fr, 2^18 elements (Plonk's 4n at 2^16 gates)"),
+              "program_line": ("plonk quotient 2^18", "Plonk's round-3 quotient over BN254 Fr "
+                               "at 4n = 2^18 (2^16 gates): 42 steps over 17 planes and 6 "
+                               "constants")},
     "bls12_377": {"ops_phase": "2k bls12_377 field ops and batch inversion",
                   "ntt_phase": "2l bls12_377 ntt", "fft_logs": (16, 17, 18, 22),
                   "fft_line": (17, "Groth16's 2n at 2^16 constraints"),
@@ -1478,7 +1578,9 @@ DENSE_CURVES = {
                   "mul_line": ("fr", 18, "BLS12-377 Fr mul, 2^18 elements (about the QAP's "
                                "3 x 2^17 at 2^16 constraints)"),
                   "inv_line": ("fq", 18, "BLS12-377 Fq (six words), 2^18 elements (Groth16 "
-                               "setup's affine G1 points at 2^16 constraints: 2^18.3)")},
+                               "setup's affine G1 points at 2^16 constraints: 2^18.3)"),
+                  "program_line": ("groth16 h 2^17", "Groth16's h = (l r - o) / t over "
+                                   "BLS12-377 Fr at 2n = 2^17 (2^16 constraints): 3 steps")},
 }
 
 
@@ -1501,6 +1603,14 @@ def phase_dense_kernels(state, curve):
 
     @phase(cfg["ops_phase"])
     def run_ops():
+        from lambda_elliptic_curves_tpu_torch.provers.plonk.prover import quotient_evaluations
+        from lambda_elliptic_curves_tpu_torch.tools import dense_mul
+
+        if "dense_mul_sass" not in state:
+            state["dense_mul_sass"] = dense_mul.sass_counts()
+        lib = native.cuda_lib()
+        stream = torch.cuda.current_stream().cuda_stream
+        no_exponent = (ctypes.c_uint32 * 12)()
         err, checked, times = 0, 0, {}
         for name in ("fr", "fq"):
             f = fields[name]
@@ -1518,6 +1628,7 @@ def phase_dense_kernels(state, curve):
                     "neg": (f.neg(a), plain.neg(a)),
                     "mul": (f.mul(a, b), plain.mul(a, b)),
                     "mul by one value": (f.mul(a, c), plain.mul(a, c)),
+                    "one value times": (f.mul(c, a), plain.mul(c, a)),
                     "square": (f.square(a), plain.square(a)),
                     "pow 65537": (f.pow(a, 65537), plain.pow(a, 65537)),
                     "batch_inverse": (f.batch_inverse(inv_in), plain.batch_inverse(inv_in)),
@@ -1527,29 +1638,59 @@ def phase_dense_kernels(state, curve):
                     check(err == 0, f"{label} {name} kernel != plain: {op} at 2^{log_n}")
                     checked += 1
                 del cases
-                mul_ms = cuda_ms(lambda: f.mul(a, b), 20)
-                b_ms, b_by = _dense_bound(state, n, n, words=words)
-                times[f"{name} mul 2^{log_n}"] = {
-                    "ms": mul_ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / mul_ms,
-                    "plain_ms": cuda_ms(lambda: plain.mul(a, b), 2)}
-                add_ms = cuda_ms(lambda: f.add(a, b), 20)
-                b_ms, b_by = _dense_bound(state, n, 0, n, words=words)
-                times[f"{name} add 2^{log_n}"] = {
-                    "ms": add_ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / add_ms}
                 native.launches[f.ops.inv_counter] = 0
                 f.batch_inverse(inv_in)
                 launches = native.launches[f.ops.inv_counter]
-                check(launches == 3, f"{label} {name} batch inversion at 2^{log_n}: "
-                      f"{launches} launches, not 3")
-                inv_ms = cuda_ms(lambda: f.batch_inverse(inv_in), 5)
-                nonzero = int((inv_in != 0).any(dim=0).sum().item())
-                b_ms, b_by = _dense_bound(state, n, 3 * nonzero, values=2, words=words)
-                times[f"{name} batch_inverse 2^{log_n}"] = {
-                    "ms": inv_ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / inv_ms,
-                    "launches": launches,
-                    "plain_ms": cuda_ms(lambda: plain.batch_inverse(inv_in), 1)}
+                check(launches == 1, f"{label} {name} batch inversion at 2^{log_n}: "
+                      f"{launches} launches, not 1")
                 del a, b, c, inv_in
                 torch.cuda.empty_cache()
+            # the launches alone (outputs allocated once, the C entries in a
+            # loop) at the provers' sizes and 2^22, whole calls beside
+            info = (ctypes.c_int * 7)()
+            for log_n in (16, 17, 18, 22):
+                n = 1 << log_n
+                a, b = _random_dense(f, n, gen), _random_dense(f, n, gen, edge_copies=2)
+                out = torch.empty_like(a)
+                reps = 20 if log_n < 22 else 10
+                for op, code, call in (("mul", 2, f.mul), ("add", 0, f.add)):
+                    def launch(code=code):
+                        rc = lib.lw_dense_field_op(f.ops.kernel_id, code, a.data_ptr(), n, 1,
+                                                   b.data_ptr(), n, 1, out.data_ptr(), n,
+                                                   no_exponent, 0, stream)
+                        check(rc == 0, f"lw_dense_field_op: CUDA error {rc}")
+                    ms = cuda_ms(launch, reps)
+                    t = _dense_op_times(state, f, n, ms, muls=n if op == "mul" else 0,
+                                        adds=0 if op == "mul" else n, values=3)
+                    t["call_ms"] = cuda_ms(lambda call=call: call(a, b), reps)
+                    if log_n in (18, 22):
+                        t["plain_ms"] = cuda_ms(lambda: (plain.mul if op == "mul"
+                                                         else plain.add)(a, b), 2)
+                    times[f"{name} {op} 2^{log_n}"] = t
+                inv_in = a.clone()
+                inv_in[:, ::1009] = 0
+                nonzero = int((inv_in != 0).any(dim=0).sum().item())
+
+                def invert():
+                    rc = lib.lw_dense_inverse(f.ops.kernel_id, inv_in.data_ptr(), out.data_ptr(),
+                                              n, stream)
+                    check(rc == 0, f"lw_dense_inverse: CUDA error {rc}")
+                ms = cuda_ms(invert, reps)
+                check(lib.lw_dense_inverse_info(f.ops.kernel_id, n, info) == 0,
+                      "lw_dense_inverse_info failed")
+                t = _dense_op_times(state, f, n, ms, muls=3 * nonzero, values=2)
+                t.update(call_ms=cuda_ms(lambda: f.batch_inverse(inv_in), reps), launches=1,
+                         tile=dict(zip(("threads", "k", "rounds", "blocks", "blocks_per_sm",
+                                        "registers", "local_bytes"), info)))
+                if log_n == 18:
+                    t["plain_ms"] = cuda_ms(lambda: plain.batch_inverse(inv_in), 1)
+                times[f"{name} batch_inverse 2^{log_n}"] = t
+                del a, b, out, inv_in
+                torch.cuda.empty_cache()
+            # one element: one block, one inversion (its latency)
+            one = _random_dense(f, 8, gen)[:, 5:6].contiguous()
+            times[f"{name} batch_inverse 1 element"] = {
+                "call_ms": cuda_ms(lambda: f.batch_inverse(one), 20)}
         # spot checks against host ints
         for name in ("fr", "fq"):
             f = fields[name]
@@ -1559,28 +1700,83 @@ def phase_dense_kernels(state, curve):
                   == [int(x) * int(y) % f.p for x, y in zip(av, bv)], f"{name} mul != host ints")
             check([int(v) for v in f.to_ints(f.batch_inverse(a))]
                   == [pow(int(x), -1, f.p) if x else 0 for x in av], f"{name} inverse != host")
-        # the kernels line: products at the width of the MSMs' scans
+        # kernel 8's programs at the provers' shapes against program_plain:
+        # Plonk's round-3 quotient at 4n = 2^18 (BN254), Groth16's t and h
+        # at 2n = 2^17 (BLS12-377, l, r and o rows of one tensor)
+        f = fields["fr"]
+        programs = {}
+        if curve == "bn254":
+            n = 1 << 18
+            ch = f.ops.chain()
+            e = {k: ch.input(_random_dense(f, n, gen)) for k in QUOTIENT_EVALS}
+            cst = {k: ch.input(_random_dense(f, 8, gen)[:, 5:6].contiguous())
+                   for k in QUOTIENT_CONSTS}
+            programs["plonk quotient 2^18"] = (ch, quotient_evaluations(ch, e, cst), n)
+        else:
+            n = 1 << 17
+            ch = f.ops.chain()
+            ch.sub(ch.mul(ch.input(_random_dense(f, n, gen)),
+                          ch.input(_random_dense(f, 8, gen)[:, 5:6].contiguous())),
+                   ch.input(f.ones((1,), dev)))
+            programs["groth16 t 2^17"] = (ch, ("step", 1), n)
+            lrc = _random_dense(f, 3 * n, gen).reshape(f.num_limbs, 3, n)
+            ch = f.ops.chain()
+            h = ch.mul(ch.sub(ch.mul(ch.input(lrc[:, 0]), ch.input(lrc[:, 1])),
+                              ch.input(lrc[:, 2])), ch.input(_random_dense(f, n, gen)))
+            programs["groth16 h 2^17"] = (ch, h, n)
+        for what, (ch, handle, n) in programs.items():
+            native.launches.update({k: 0 for k in native.launches})
+            got = ch.run(handle)
+            check(native.launches[f.ops.program_counter] == 1
+                  and sum(native.launches.values()) == 1, f"{label} {what}: not one launch")
+            err = max(err, max_abs_err(got, f.ops.program_plain(ch.steps_encoded(), ch.inputs)))
+            check(err == 0, f"{label} {what}: program != program_plain")
+            checked += 1
+            launch = _program_launch(f, ch, got)
+            steps = [op for op, _, _ in ch.steps]
+            planes = sum(1 for t in ch.inputs if t[0].numel() > 1)
+            t = _dense_op_times(state, f, n, cuda_ms(launch, 20),
+                                muls=n * sum(op in ("mul", "square") for op in steps),
+                                adds=n * sum(op in ("add", "sub", "neg") for op in steps),
+                                values=planes + 1)
+            t.update(call_ms=cuda_ms(lambda: ch.run(handle), 20), steps=len(steps),
+                     input_planes=planes, inputs=len(ch.inputs),
+                     plain_ms=cuda_ms(lambda: f.ops.program_plain(ch.steps_encoded(),
+                                                                  ch.inputs), 1))
+            times[what] = t
+        del programs, ch
+        # the kernels line: kernel 8 at its main-path shape, kernel 9 at the
+        # inversion of its main path, the program of its main path
+        sass = {k + (what or " product"): state["dense_mul_sass"].get(
+            f"{_sass_field(fields[k])} {dense_mul.VARIANTS[1]}{what}", {}).get("instructions")
+            for k in ("fr", "fq") for what in ("", " butterfly")}
         name, log_n, shape = cfg["mul_line"]
-        f = fields[name]
-        x, y = _random_dense(f, 1 << log_n, gen), _random_dense(f, 1 << log_n, gen)
-        ms = cuda_ms(lambda: f.mul(x, y), 20)
-        b_ms, b_by = _dense_bound(state, 1 << log_n, 1 << log_n, words=f.ops.WORDS)
-        t = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
-             "plain_ms": cuda_ms(lambda: f.plain().mul(x, y), 2)}
-        times[f"{name} mul 2^{log_n}"] = t
-        del x, y
-        rec["dense_field" + suffix].update(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
-                                           bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                                           library_ms=None, shape=shape)
+        t = times[f"{name} mul 2^{log_n}"]
+        rec["dense_field" + suffix].update(
+            max_abs_err=err, ms=t["ms"], ms_what="the launches alone (lw_dense_field_op)",
+            call_ms=t["call_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], share=t["share"], fixed_bound_ms=t["fixed_bound_ms"],
+            library_ms=None, shape=shape, sass_instructions=sass, bound_counts=t["counts"])
         name, log_n, shape = cfg["inv_line"]
         t = times[f"{name} batch_inverse 2^{log_n}"]
-        rec["dense_inv" + suffix].update(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
-                                         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                                         library_ms=None, shape=shape)
+        rec["dense_inv" + suffix].update(
+            max_abs_err=err, ms=t["ms"], ms_what="the launch alone (lw_dense_inverse)",
+            call_ms=t["call_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], share=t["share"], fixed_bound_ms=t["fixed_bound_ms"],
+            library_ms=None, shape=shape, sass_instructions=sass, bound_counts=t["counts"],
+            tile=t["tile"])
+        what, shape = cfg["program_line"]
+        t = times[what]
+        rec["dense_program" + suffix].update(
+            max_abs_err=err, ms=t["ms"], ms_what="the launch alone (lw_dense_field_program)",
+            call_ms=t["call_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], share=t["share"], fixed_bound_ms=t["fixed_bound_ms"],
+            library_ms=None, shape=shape, sass_instructions=sass, bound_counts=t["counts"],
+            steps=t["steps"], input_planes=t["input_planes"])
         state[f"{curve}_field"] = times
         torch.cuda.empty_cache()
-        return (f"{checked} ops bitwise equal to plain at 2^18 and 2^22 (Fr and Fq); "
-                + json.dumps(times))
+        return (f"{checked} ops, inversions and programs bitwise equal to plain (ops at 2^18 "
+                f"and 2^22, Fr and Fq; kernel 9 one launch a call); " + json.dumps(times))
     run_ops()
 
     @phase(cfg["ntt_phase"])
@@ -2621,6 +2817,9 @@ def phase_launches(state):
         plonk = state["launches_plonk"]
         for k in BN254_KERNELS:
             check(plonk.get(k, 0) > 0, f"kernel {k} was not launched by the Plonk prove")
+        # round 3's quotient: one launch of kernel 8's program entry
+        check(plonk["dense_program"] == 1, f"the Plonk prove ran {plonk['dense_program']} "
+              "kernel-8 programs, not 1 (its round-3 quotient)")
         for k in set(STARK252_KERNELS + SMALL_KERNELS + BLS_KERNELS + BLS_SETUP_KERNELS
                      + ("field_pow",)):
             check(plonk.get(k, 0) == 0, f"the Plonk prove launched {k}")
@@ -2638,6 +2837,8 @@ def phase_launches(state):
         for k in set(STARK252_KERNELS + SMALL_KERNELS + BN254_KERNELS + BN254_SETUP_KERNELS
                      + ("field_pow",)):
             check(groth16.get(k, 0) == 0, f"the Groth16 prove launched {k}")
+        check(groth16["dense_program_bls12_377"] == 2, "the Groth16 prove ran "
+              f"{groth16['dense_program_bls12_377']} kernel-8 programs, not 2 (t and h)")
         check(groth16["dense_field_bls12_377"] < GROTH16_DENSE_FIELD_MAX,
               f"the Groth16 prove launched kernel 8 {groth16['dense_field_bls12_377']} times, "
               f"not fewer than {GROTH16_DENSE_FIELD_MAX}")

@@ -1,10 +1,6 @@
-// Batch inversion by a tiled Montgomery trick on (LIMBS, n) limb planes:
-// Stark252 (kernel 4, lw_field_batch_inverse) and, on the same template
-// (batch_inverse.cuh), the dense fields with dense.cuh's product (kernel 9,
-// lw_dense_batch_inverse): BN254 Fr and Fq and BLS12-377 Fr on 8 limbs,
-// BLS12-377 Fq on 12 (a 6-word product about twice the 4-word one).  Below, the design and bounds of kernel 4; for
-// kernel 9 the same holds with a dense CIOS product about twice the cost
-// of Stark252's, and a one-bit-a-step binary Euclid for the one inversion.
+// Batch inversion by a tiled Montgomery trick on (8, n) limb planes over
+// Stark252 (kernel 4, lw_field_batch_inverse).  The dense fields have a
+// kernel of their own (kernel 9, dense_inverse.cu).
 //
 // Replaces XLA code, not a Pallas kernel: the JAX package's
 // lambda_elliptic_curves_tpu/ops/limbs.py:895 batch_inverse (an
@@ -37,7 +33,6 @@
 #include <stdint.h>
 
 #include "batch_inverse.cuh"
-#include "dense.cuh"
 
 // One kernel per mode, so that the up and down passes carry neither the
 // inversion's code nor its registers.  A down pass takes its tiles last
@@ -89,44 +84,4 @@ extern "C" int lw_field_batch_inverse_plan(long n, long* scratch_words) {
 extern "C" int lw_field_batch_inverse(const int32_t* x, int32_t* out, int32_t* scratch, long n,
                                       void* stream) {
     return lw_inv_run(x, out, scratch, n, LW_INV_THREADS, lw_inv_walk(n), stream);
-}
-
-// The limbs of a dense field (dense.cuh's LW_DENSE_*), 0 for no such field.
-static int lw_dense_limbs(int field) {
-    switch (field) {
-        case LW_DENSE_BN254_FR: return LwBn254Fr::LIMBS;
-        case LW_DENSE_BN254_FQ: return LwBn254Fq::LIMBS;
-        case LW_DENSE_BLS12_377_FR: return LwBls12377Fr::LIMBS;
-        case LW_DENSE_BLS12_377_FQ: return LwBls12377Fq::LIMBS;
-        default: return 0;
-    }
-}
-
-// Launches that lw_dense_batch_inverse makes for n elements of `field`, and
-// the int32 words of scratch it needs (-1 for no such field).
-extern "C" int lw_dense_batch_inverse_plan(int field, long n, long* scratch_words) {
-    const int limbs = lw_dense_limbs(field);
-    if (!limbs) return -1;
-    const LwInvPlan P = lw_inv_plan(n, LW_INV_THREADS, lw_inv_walk(n), limbs);
-    *scratch_words = P.scratch_words;
-    return P.launches;
-}
-
-// lw_field_batch_inverse over a dense field (LW_DENSE_BN254_FR, _FQ,
-// LW_DENSE_BLS12_377_FR, _FQ; dense.cuh): (LIMBS, n) planes, the same
-// tile and walk, lw_dense_batch_inverse_plan's launches and scratch.
-extern "C" int lw_dense_batch_inverse(int field, const int32_t* x, int32_t* out,
-                                      int32_t* scratch, long n, void* stream) {
-    const int L = lw_inv_walk(n);
-    switch (field) {
-        case LW_DENSE_BN254_FR:
-            return lw_inv_run<LwBn254Fr>(x, out, scratch, n, LW_INV_THREADS, L, stream);
-        case LW_DENSE_BN254_FQ:
-            return lw_inv_run<LwBn254Fq>(x, out, scratch, n, LW_INV_THREADS, L, stream);
-        case LW_DENSE_BLS12_377_FR:
-            return lw_inv_run<LwBls12377Fr>(x, out, scratch, n, LW_INV_THREADS, L, stream);
-        case LW_DENSE_BLS12_377_FQ:
-            return lw_inv_run<LwBls12377Fq>(x, out, scratch, n, LW_INV_THREADS, L, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
 }

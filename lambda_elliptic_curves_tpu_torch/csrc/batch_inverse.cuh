@@ -1,11 +1,11 @@
-// Batch inversion as a tiled Montgomery trick over Stark252 or a dense
-// field (BN254 Fr, Fq): the work of one thread block of batch_inverse.cu,
-// and the schedule of its launches, kept in a header so that g++ compiles
-// the same code for the host (tests/test_torch_batch_inverse.py,
-// tests/test_torch_bn254.py, tests/test_torch_bls12_377.py).  The field is a
-// template parameter F (mul, one, inv on F::LIMBS u32 limbs): LwStark252
-// (mont.cuh, 8 limbs) or LwDense (dense.cuh, 8 or 12); the schedule does
-// not depend on it, only the words a level takes.
+// Batch inversion as a tiled Montgomery trick over Stark252: the work of
+// one thread block of batch_inverse.cu, and the schedule of its launches,
+// kept in a header so that g++ compiles the same code for the host
+// (tests/test_torch_batch_inverse.py).  The field is a template parameter F
+// (mul, one, inv on F::LIMBS u32 limbs; the card instantiates LwStark252,
+// mont.cuh); the schedule does not depend on it, only the words a level
+// takes.  The dense fields invert on a kernel of their own
+// (dense_inverse.cuh).
 //
 // Each loop over threads below runs `for (t = tid; t < T; t += nt)` over
 // iterations that touch distinct shared-memory words, with LW_INV_SYNC

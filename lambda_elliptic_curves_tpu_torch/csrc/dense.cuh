@@ -1,14 +1,14 @@
 // Montgomery arithmetic over dense moduli on W 64-bit words (2 W 32-bit
 // limbs): BN254 Fr and Fq and BLS12-377 Fr at W = 4, BLS12-377 Fq at
-// W = 6.  The one implementation that dense_field.cu, batch_inverse.cu
-// (lw_dense_batch_inverse) and the curve kernels share; ntt.cu
-// (lw_dense_ntt_passes) runs dense32.cuh's product on these parameters,
-// held against this one.
+// W = 6.  The product of the curve kernels (kernels 10 and 11), and the
+// reference that dense32.cuh's product is held against; kernels 1, 8 and 9
+// (ntt.cu's dense entry, dense_field.cu, dense_inverse.cu) run dense32.cuh's
+// product and sums on these parameters, and this header's inversion.
 //
 // Replaces the XLA digit code of lambda_elliptic_curves_tpu/ops/limbs.py for
 // these fields (mont_mul :750, mont_square :829, add :600, sub :610, neg
-// :624, mont_pow :860), and is the product that the batch inversion
-// (batch_inverse.cuh) and the curve kernels run for them.  A value is x * R
+// :624, mont_pow :860) as the reference of dense32.cuh, and is the product
+// that the curve kernels run for them.  A value is x * R
 // mod p with R = 2^(64 W), the JAX package's R (2^256 for the 4-word
 // fields, 2^384 for BLS12-377 Fq's 24 digits), held as 2 W u32 limbs, least
 // significant first (the JAX digits' bits); the arithmetic packs them into
@@ -124,8 +124,8 @@ struct LwBls12377FqParams {
     static constexpr uint64_t N0 = 0x8508BFFFFFFFFFFFull;
 };
 
-// The field interface that batch_inverse.cuh and the curve kernels take
-// (as LwStark252 in mont.cuh): mul, butterfly, one, inv on LIMBS = 2 W u32
+// The field interface that the curve kernels take (as LwStark252 in
+// mont.cuh): mul, butterfly, one, inv on LIMBS = 2 W u32
 // limbs; dense32.cuh's LwDense32 derives from it.
 template <class Q>
 struct LwDense {

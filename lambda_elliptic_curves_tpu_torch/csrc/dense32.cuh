@@ -1,9 +1,10 @@
 // Montgomery arithmetic over the dense moduli of dense.cuh, written for the
 // card: 2 W 32-bit limbs in the card's carry-chain multiply-adds.  Kernel 1
-// over BN254 Fr and BLS12-377 Fr (ntt.cu's dense entry, ntt_dense.cuh) runs
-// on it; kernels 8-11 keep dense.cuh's CIOS on 64-bit words, which stays
-// the reference that this product is held against (tools/dense_mul.py, on
-// the card and with g++).
+// over BN254 Fr and BLS12-377 Fr (ntt.cu's dense entry, ntt_dense.cuh) and
+// kernels 8 and 9 over the four dense fields (dense_field.cu,
+// dense_inverse.cu) run on it; kernels 10 and 11 keep dense.cuh's CIOS on
+// 64-bit words, which stays the reference that this product is held
+// against (tools/dense_mul.py, on the card and with g++).
 //
 // Why not dense.cuh's product on the card: sm_90 has no 64-bit multiplier,
 // so each of its 32 64x64-bit products is several 32-bit multiply-adds and
@@ -155,31 +156,51 @@ LW_HD void lw_d32_mul(const uint32_t* a, const uint32_t* b, uint32_t* r) {
     for (int i = 0; i < N; i++) r[i] = E[i];
 }
 
-// u, v <- u + v, u - v (canonical in and out), in carry chains: u + v < 2p
-// then + (2^(32 n) - p) taken when it carries out; u + ~v + 1, then + p
-// when that does not carry out (u < v)
+// r = a + b (canonical in and out) in a carry chain: a + b < 2p, then
+// + (2^(32 n) - p) taken when it carries out (r may alias a or b)
+template <class Q>
+LW_HD void lw_d32_add(const uint32_t* a, const uint32_t* b, uint32_t* r) {
+    constexpr int N = 2 * Q::W;
+    uint32_t s[N];
+    s[0] = lw_add_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < N; k++) s[k] = lw_addc_cc(a[k], b[k]);
+    lw_d32_reduce_once<Q, N>(s);
+#pragma unroll
+    for (int k = 0; k < N; k++) r[k] = s[k];
+}
+
+// r = a - b (canonical in and out): a + ~b + 1, then + p when that does
+// not carry out (a < b); r may alias a or b
+template <class Q>
+LW_HD void lw_d32_sub(const uint32_t* a, const uint32_t* b, uint32_t* r) {
+    constexpr int N = 2 * Q::W;
+    uint32_t d[N];
+    (void)lw_add_cc(0xFFFFFFFFu, 1u);  // the flag set: the + 1 of a + ~b + 1
+#pragma unroll
+    for (int k = 0; k < N; k++) d[k] = lw_addc_cc(a[k], ~b[k]);
+    const uint32_t add_p = lw_addc(0u, 0u) - 1u;  // all ones if a < b
+    r[0] = lw_add_cc(d[0], add_p & lw_d32_p<Q>(0));
+#pragma unroll
+    for (int k = 1; k < N - 1; k++) r[k] = lw_addc_cc(d[k], add_p & lw_d32_p<Q>(k));
+    r[N - 1] = lw_addc(d[N - 1], add_p & lw_d32_p<Q>(N - 1));
+}
+
+// u, v <- u + v, u - v, the two chains above one after the other
 template <class Q>
 LW_HD void lw_d32_butterfly(uint32_t* u, uint32_t* v) {
     constexpr int N = 2 * Q::W;
-    uint32_t s[N], d[N];
-    s[0] = lw_add_cc(u[0], v[0]);
-#pragma unroll
-    for (int k = 1; k < N; k++) s[k] = lw_addc_cc(u[k], v[k]);
-    lw_d32_reduce_once<Q, N>(s);
-    (void)lw_add_cc(0xFFFFFFFFu, 1u);  // the flag set: the + 1 of u + ~v + 1
-#pragma unroll
-    for (int k = 0; k < N; k++) d[k] = lw_addc_cc(u[k], ~v[k]);
-    const uint32_t add_p = lw_addc(0u, 0u) - 1u;  // all ones if u < v
-    v[0] = lw_add_cc(d[0], add_p & lw_d32_p<Q>(0));
-#pragma unroll
-    for (int k = 1; k < N - 1; k++) v[k] = lw_addc_cc(d[k], add_p & lw_d32_p<Q>(k));
-    v[N - 1] = lw_addc(d[N - 1], add_p & lw_d32_p<Q>(N - 1));
+    uint32_t s[N];
+    lw_d32_add<Q>(u, v, s);
+    lw_d32_sub<Q>(u, v, v);
 #pragma unroll
     for (int k = 0; k < N; k++) u[k] = s[k];
 }
 
-// The field interface of ntt_dense.cuh: LwDense<Q>'s, with this header's
-// product and butterfly in place of its 64-bit ones
+// The field interface of ntt_dense.cuh and of kernels 8 and 9
+// (dense_field.cuh, dense_inverse.cuh): LwDense<Q>'s, with this header's
+// product, sums and butterfly in place of its 64-bit ones; inv stays
+// LwDense<Q>'s binary Euclid (no products)
 template <class Q>
 struct LwDense32 : LwDense<Q> {
     static constexpr int LIMBS = 2 * Q::W;
@@ -187,10 +208,39 @@ struct LwDense32 : LwDense<Q> {
                            uint32_t r[LIMBS]) {
         lw_d32_mul<Q>(a, b, r);
     }
+    LW_HDM static void add(const uint32_t a[LIMBS], const uint32_t b[LIMBS],
+                           uint32_t r[LIMBS]) {
+        lw_d32_add<Q>(a, b, r);
+    }
+    LW_HDM static void sub(const uint32_t a[LIMBS], const uint32_t b[LIMBS],
+                           uint32_t r[LIMBS]) {
+        lw_d32_sub<Q>(a, b, r);
+    }
+    LW_HDM static void neg(const uint32_t a[LIMBS], uint32_t r[LIMBS]) {
+        const uint32_t zero[LIMBS] = {};
+        lw_d32_sub<Q>(zero, a, r);
+    }
     LW_HDM static void butterfly(uint32_t u[LIMBS], uint32_t v[LIMBS]) {
         lw_d32_butterfly<Q>(u, v);
+    }
+    // a^e, e as little-endian u32 words and its bit length (left to right
+    // square and multiply; e = 0 gives the Montgomery one)
+    LW_HDM static void pow(const uint32_t a[LIMBS], const uint32_t e[LIMBS], int nbits,
+                           uint32_t r[LIMBS]) {
+        uint32_t x[LIMBS], acc[LIMBS];
+#pragma unroll
+        for (int k = 0; k < LIMBS; k++) x[k] = a[k];
+        LwDense<Q>::one(acc);
+        for (int bit = nbits - 1; bit >= 0; bit--) {
+            lw_d32_mul<Q>(acc, acc, acc);
+            if ((e[bit >> 5] >> (bit & 31)) & 1u) lw_d32_mul<Q>(acc, x, acc);
+        }
+#pragma unroll
+        for (int k = 0; k < LIMBS; k++) r[k] = acc[k];
     }
 };
 
 typedef LwDense32<LwBn254FrParams> LwBn254Fr32;
+typedef LwDense32<LwBn254FqParams> LwBn254Fq32;
 typedef LwDense32<LwBls12377FrParams> LwBls12377Fr32;
+typedef LwDense32<LwBls12377FqParams> LwBls12377Fq32;

@@ -43,9 +43,11 @@ COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
 #: ``small_field`` the Goldilocks / BabyBear and tower ops and their batch
 #: inversion (``csrc/small_field.cu``), ``small_ntt`` their NTT passes
 #: (``csrc/small_ntt.cu``), ``dense_field`` the BN254 Fr / Fq ops
-#: (``csrc/dense_field.cu``), ``dense_inv`` their batch inversion
-#: (``csrc/batch_inverse.cu``), ``dense_ntt`` BN254 Fr's NTT passes
-#: (``csrc/ntt.cu``); ``dense_field_bls12_377``, ``dense_inv_bls12_377`` and
+#: (``csrc/dense_field.cu``), ``dense_program`` their programs of ops (the
+#: same source's program entry), ``dense_inv`` their batch inversion
+#: (``csrc/dense_inverse.cu``), ``dense_ntt`` BN254 Fr's NTT passes
+#: (``csrc/ntt.cu``); ``dense_field_bls12_377``, ``dense_program_bls12_377``,
+#: ``dense_inv_bls12_377`` and
 #: ``dense_ntt_bls12_377`` the same kernels' BLS12-377 instances (Fq on six
 #: words, Fr on four); ``curve_op`` BN254's G1 and G2 group ops
 #: (``csrc/curve.cu``), ``msm_bucket`` their Pippenger bucket phase
@@ -53,7 +55,8 @@ COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
 #: ``msm_bucket_bls12_377`` BLS12-377's
 launches: dict = {"field": 0, "field_pow": 0, "field_inv": 0, "ntt": 0, "keccak": 0,
                   "grind": 0, "small_field": 0, "small_ntt": 0, "dense_field": 0,
-                  "dense_inv": 0, "dense_ntt": 0, "dense_field_bls12_377": 0,
+                  "dense_program": 0, "dense_inv": 0, "dense_ntt": 0,
+                  "dense_field_bls12_377": 0, "dense_program_bls12_377": 0,
                   "dense_inv_bls12_377": 0, "dense_ntt_bls12_377": 0, "curve_op": 0,
                   "msm_bucket": 0, "curve_op_bls12_377": 0, "msm_bucket_bls12_377": 0}
 
@@ -192,8 +195,9 @@ def cuda_lib():
                 "lw_small_ntt_passes": [I, P, P, P, P, P, P, L, I, I, I, P, P, I, P],
                 "lw_small_ntt_info": [I, I, I, P],
                 "lw_dense_field_op": [I, I, P, L, L, P, L, L, P, L, P, I, P],
-                "lw_dense_batch_inverse_plan": [I, L, P],
-                "lw_dense_batch_inverse": [I, P, P, P, L, P],
+                "lw_dense_field_program": [I, I, P, P, P, I, P, P, P, P, I, P, L, P],
+                "lw_dense_inverse": [I, P, P, L, P],
+                "lw_dense_inverse_info": [I, L, P],
                 "lw_dense_ntt_passes": [I, P, P, P, P, L, I, I, P, P, I, P],
                 "lw_dense_ntt_info": [I, I, I, P],
                 "lw_curve_op": [I, I, P, P, P, P, L, P],

@@ -219,12 +219,21 @@ class SmallField:
     def _operand(self, x: torch.Tensor, rows: int, batch: tuple, n: int):
         """(tensor, limb stride, element stride) for the kernel: one value
         broadcast over the batch (a batch of one, or an expanded view whose
-        batch strides are all 0) is read with element stride 0, anything
-        else as a contiguous (rows, n) plane set."""
+        batch strides are all 0) is read with element stride 0, a batch
+        whose dimensions merge into one stride (a contiguous tensor, or a
+        row of a ``(rows, k, n)`` tensor) in place, anything else as a
+        contiguous (rows, n) plane set."""
         if x.dtype != torch.int32 or not x.is_cuda or x.shape[0] != rows:
             raise TypeError(f"{self.name} kernel takes ({rows}, *batch) int32 CUDA tensors")
         if n > 1 and (x[0].numel() == 1 or not any(x.stride()[1:])):
             return x, x.stride(0), 0
+        if tuple(x.shape[1:]) == batch:
+            try:
+                v = x.view(rows, n)
+            except RuntimeError:  # dimensions that do not merge
+                v = None
+            if v is not None:
+                return v, v.stride(0), v.stride(1)
         x = x.expand((rows,) + batch).contiguous()
         return x, n, 1
 

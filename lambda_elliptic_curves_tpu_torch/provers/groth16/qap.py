@@ -161,7 +161,13 @@ class QuadraticArithmeticProgram:
         # t(x) = x^n - 1 on the offset domain, inverted
         t_vals = ntt.powers(f, pow(f.params.primitive_root_of_unity(degree.bit_length() - 1),
                                    n, p), degree, device=device)
-        t_vals = f.sub(f.mul(t_vals, f.constant(pow(H_OFFSET, n, p), (1,), device)),
-                       f.ones((1,), device))
-        h_evals = f.mul(f.sub(f.mul(l_e, r_e), o_e), f.batch_inverse(t_vals))
+        # t and h as programs of field ops: on the card one launch of kernel
+        # 8's program entry each, and 1 / t one launch of kernel 9
+        ch = f.ops.chain()
+        t_vals = ch.run(ch.sub(ch.mul(ch.input(t_vals), ch.input(
+            f.constant(pow(H_OFFSET, n, p), (1,), device))), ch.input(f.ones((1,), device))))
+        t_inv = f.batch_inverse(t_vals)
+        ch = f.ops.chain()
+        h_evals = ch.run(ch.mul(ch.sub(ch.mul(ch.input(l_e), ch.input(r_e)), ch.input(o_e)),
+                                ch.input(t_inv)))
         return [int(v) for v in f.to_ints(ntt.interpolate_offset_fft(f, h_evals, H_OFFSET))]

@@ -4,7 +4,8 @@ documented at :20-24 and implemented at :311-630).
 Counterpart of ``lambda_elliptic_curves_tpu/provers/plonk/prover.py``, on
 the commitment scheme's device: the transforms of rounds 1-3 run the NTT
 (on the card kernel 1 over BN254 Fr), round 3's quotient stays on the
-device as limb tensors (kernel 8 for its arithmetic, kernel 9 for its one
+device as limb tensors (one launch of kernel 8's program entry for its
+arithmetic, :func:`quotient_evaluations`, and one of kernel 9 for its
 batch inversion), and the commitments are the KZG's MSMs (kernel 8 over
 BN254 Fq, kernel 9 for the affine points).  The host loops of rounds 2, 4
 and 5 stay host loops, as in the JAX package.  ``Prover.round_seconds``
@@ -142,8 +143,8 @@ class Prover:
         p_pi = _interp(f, pi_y)
 
         # the quotient on the device: all 4n-coset evaluations stay there as
-        # (8, 4n) limb tensors, a handful of batched field launches in place
-        # of a host loop (prover.rs round_3 under rayon)
+        # (8, 4n) limb tensors, in place of a host loop (prover.rs round_3
+        # under rayon)
         ev = lambda poly: _eval_offset_dev(f, poly, degree, offset, dev)  # noqa: E731
         a_e, b_e, c_e = ev(p_a), ev(p_b), ev(p_c)
         ql_e, qr_e, qm_e = ev(cpi.ql), ev(cpi.qr), ev(cpi.qm)
@@ -154,32 +155,18 @@ class Prover:
         l1_e = ev(l1)
         zh_e = ev(zh)
 
-        const = lambda v: f.constant(int(v), (1,), dev)  # noqa: E731
-        add3 = lambda u, v, w: f.add(f.add(u, v), w)  # noqa: E731
-        gates = add3(
-            f.add(f.mul(f.mul(a_e, b_e), qm_e), f.mul(a_e, ql_e)),
-            f.add(f.mul(b_e, qr_e), f.mul(c_e, qo_e)),
-            f.add(qc_e, pi_e),
-        )
-        gamma_c = const(gamma)
-        xb = f.mul(x_e, const(beta))
-        f_i = f.mul(
-            f.mul(add3(a_e, xb, gamma_c),
-                  add3(b_e, f.mul(xb, const(k1)), gamma_c)),
-            add3(c_e, f.mul(xb, const(k2)), gamma_c),
-        )
-        beta_c = const(beta)
-        g_i = f.mul(
-            f.mul(add3(a_e, f.mul(s1_e, beta_c), gamma_c),
-                  add3(b_e, f.mul(s2_e, beta_c), gamma_c)),
-            add3(c_e, f.mul(s3_e, beta_c), gamma_c),
-        )
-        perm1 = f.sub(f.mul(g_i, zw_e), f.mul(f_i, z_e))
-        perm2 = f.mul(f.sub(z_e, const(1)), l1_e)
-        alpha_c = const(alpha)
-        numerator = f.add(
-            f.mul(f.add(f.mul(perm2, alpha_c), perm1), alpha_c), gates)
-        p_eval = f.mul(numerator, f.batch_inverse(zh_e))
+        # then one program of field ops over them, the inverse of Z_H and
+        # the constants: on the card one launch of kernel 8's program entry
+        zh_inv_e = f.batch_inverse(zh_e)
+        ch = f.ops.chain()
+        e = {k: ch.input(v) for k, v in (
+            ("a", a_e), ("b", b_e), ("c", c_e), ("ql", ql_e), ("qr", qr_e), ("qm", qm_e),
+            ("qo", qo_e), ("qc", qc_e), ("pi", pi_e), ("x", x_e), ("z", z_e), ("zw", zw_e),
+            ("s1", s1_e), ("s2", s2_e), ("s3", s3_e), ("l1", l1_e), ("zh_inv", zh_inv_e))}
+        cst = {k: ch.input(f.constant(int(v), (1,), dev)) for k, v in (
+            ("beta", beta), ("gamma", gamma), ("k1", k1), ("k2", k2), ("alpha", alpha),
+            ("one", 1))}
+        p_eval = ch.run(quotient_evaluations(ch, e, cst))
         t_coeffs = ntt.interpolate_offset_fft(f, p_eval, int(offset))
         t = Polynomial(f, [int(v) for v in f.to_ints(t_coeffs)])
 
@@ -244,6 +231,38 @@ class Prover:
             w_zeta_1=w_zeta_1, w_zeta_omega_1=w_zeta_omega_1,
             p_non_constant_zeta=ys[1], t_zeta=ys[0],
         )
+
+
+def quotient_evaluations(F, e: dict, c: dict):
+    """Round 3's quotient t = (gates + alpha copy_1 + alpha^2 copy_2) / Z_H
+    at each point of the coset, written against ``F``'s ``add``, ``sub``
+    and ``mul``: a field on evaluation tensors, or a :class:`..ops.dense.
+    Chain`, which records the ops as one program.  ``e``: the coset
+    evaluations ``a``, ``b``, ``c``, ``ql``, ``qr``, ``qm``, ``qo``, ``qc``,
+    ``pi``, ``x``, ``z``, ``zw`` (z(x omega)), ``s1``, ``s2``, ``s3``, ``l1``
+    and ``zh_inv`` (1 / Z_H); ``c``: ``beta``, ``gamma``, ``k1``, ``k2``,
+    ``alpha`` and ``one`` (``prover.rs`` round_3)."""
+    add3 = lambda u, v, w: F.add(F.add(u, v), w)  # noqa: E731
+    a, b, cc = e["a"], e["b"], e["c"]
+    gates = add3(
+        F.add(F.mul(F.mul(a, b), e["qm"]), F.mul(a, e["ql"])),
+        F.add(F.mul(b, e["qr"]), F.mul(cc, e["qo"])),
+        F.add(e["qc"], e["pi"]),
+    )
+    beta, gamma = c["beta"], c["gamma"]
+    xb = F.mul(e["x"], beta)
+    f_i = F.mul(
+        F.mul(add3(a, xb, gamma), add3(b, F.mul(xb, c["k1"]), gamma)),
+        add3(cc, F.mul(xb, c["k2"]), gamma),
+    )
+    g_i = F.mul(
+        F.mul(add3(a, F.mul(e["s1"], beta), gamma), add3(b, F.mul(e["s2"], beta), gamma)),
+        add3(cc, F.mul(e["s3"], beta), gamma),
+    )
+    perm1 = F.sub(F.mul(g_i, e["zw"]), F.mul(f_i, e["z"]))
+    perm2 = F.mul(F.sub(e["z"], c["one"]), e["l1"])
+    numerator = F.add(F.mul(F.add(F.mul(perm2, c["alpha"]), perm1), c["alpha"]), gates)
+    return F.mul(numerator, e["zh_inv"])
 
 
 def _eval_offset_dev(field, poly: Polynomial, degree: int, offset, device):

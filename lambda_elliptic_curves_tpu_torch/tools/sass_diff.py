@@ -1,6 +1,6 @@
 """Compare the machine code (SASS) of the CUDA kernels of two checkouts of
-the port: each source (default ``ntt.cu``, ``dense_field.cu``,
-``batch_inverse.cu``, ``field.cu``) of each checkout is compiled to a cubin
+the port: each source (default: every ``csrc/*.cu`` that both checkouts
+have) of each checkout is compiled to a cubin
 with the port's own ``nvcc`` flags (every compile at once), ``cuobjdump
 -sass`` lists its kernels,
 and every kernel that both checkouts have is compared instruction by
@@ -29,7 +29,11 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("ntt.cu", "dense_field.cu", "batch_inverse.cu", "field.cu")
+
+
+def _sources(tree: str) -> set:
+    csrc = os.path.join(tree, "lambda_elliptic_curves_tpu_torch", "csrc")
+    return {f for f in os.listdir(csrc) if f.endswith(".cu")}
 
 
 def _tool(name: str) -> str:
@@ -73,8 +77,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True)
     ap.add_argument("--against", default=os.path.dirname(os.path.dirname(HERE)))
-    ap.add_argument("sources", nargs="*", default=list(SOURCES))
+    ap.add_argument("sources", nargs="*")
     args = ap.parse_args()
+    args.sources = args.sources or sorted(_sources(args.tree) & _sources(args.against))
     sys.path.insert(0, args.against)
     from lambda_elliptic_curves_tpu_torch import native
 

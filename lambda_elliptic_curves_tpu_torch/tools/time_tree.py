@@ -65,7 +65,21 @@ otherwise.  The groups, run in this order whatever order they are given in
   kernel 6: the prove's ``batch_inverse`` calls (recorded by wrapping
   ``PrimeField.batch_inverse`` and ``DeviceQuadraticField.batch_inverse``
   while it runs) timed again at their shapes on random values (about a
-  minute).
+  minute);
+* ``dense``: kernels 8 and 9 over the dense fields (``fields.BN254Fr``,
+  ``BN254Field``, ``BLS12377Fr``, ``BLS12377Field``): a product at 2^16,
+  2^17, 2^18 and 2^22 and a sum at 2^22, the C entry ``lw_dense_field_op``
+  alone in a loop on an output allocated once (its signature is the same
+  in every version since slice 8); batch inversion at 2^16, 2^17, 2^18 and
+  2^22, whole calls and the launches alone (``lw_dense_inverse``, or an
+  older tree's ``lw_dense_batch_inverse`` on scratch allocated once), each
+  output held against the plain version; Plonk's round-3 quotient at 2^18
+  over BN254 Fr and Groth16's t and h at 2^17 over BLS12-377 Fr as the
+  tree runs them (one program launch, ``ops.dense.Chain``, or one launch
+  an op in an older tree), each held against the plain ops; then a warm
+  Plonk prove at 2^16 gates and a warm Groth16 prove at 2^16 constraints
+  under ``torch.profiler``: kernels 8 and 9's device ms and traced
+  launches, their launch counts, busy and wall ms (about two minutes).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -83,7 +97,7 @@ if __package__:
 else:  # run as a script: this file's folder heads sys.path, whatever DIR holds
     from _timing import cache_bytes, cuda_ms, profile, random_field, random_small, smi
 
-GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk", "dense_fft", "small")
+GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk", "dense_fft", "small", "dense")
 
 
 class Failed(Exception):
@@ -443,9 +457,154 @@ def main() -> int:
             del trace, proof
             torch.cuda.empty_cache()
 
+    def run_dense():
+        import ctypes
+
+        from lambda_elliptic_curves_tpu_torch import fields
+
+        lib = native.cuda_lib()
+        stream = torch.cuda.current_stream().cuda_stream
+        no_exponent = (ctypes.c_uint32 * 12)()
+
+        def canonical(fd, shape):
+            """Random limbs of ``fd`` below p (the top limb below p's)."""
+            x = torch.randint(-2**31, 2**31, (fd.num_limbs,) + tuple(shape), generator=gen,
+                              device=dev, dtype=torch.int64)
+            x[-1] = x[-1].abs() % (fd.p >> (32 * (fd.num_limbs - 1)))
+            return x.to(torch.int32)
+
+        def checked(rc, what):
+            if rc != 0:
+                raise Failed(f"{what}: CUDA error {rc}")
+
+        for fd in (fields.BN254Fr, fields.BN254Field, fields.BLS12377Fr, fields.BLS12377Field):
+            kid = fd.ops.kernel_id
+            for log_n in (16, 17, 18, 22):
+                n = 1 << log_n
+                a, b = canonical(fd, (n,)), canonical(fd, (n,))
+                out = torch.empty_like(a)
+                reps = 20 if log_n < 22 else 10
+                for op, code in (("mul", 2), ("add", 0))[:2 if log_n == 22 else 1]:
+                    key = f"{fd.name} {op} 2^{log_n}"
+                    launch = lambda code=code: checked(lib.lw_dense_field_op(  # noqa: E731
+                        kid, code, a.data_ptr(), n, 1, b.data_ptr(), n, 1, out.data_ptr(), n,
+                        no_exponent, 0, stream), "lw_dense_field_op")
+                    launch()
+                    want = (fd.ops.mont_mul_plain if op == "mul" else fd.ops.add_plain)(a, b)
+                    if not torch.equal(out, want):
+                        raise Failed(f"{key} != plain")
+                    rec[key + " kernel ms"] = cuda_ms(launch, reps)
+                a[:, ::1009] = 0
+                want = fd.ops.batch_inverse_plain(a)
+                key = f"{fd.name} batch_inverse 2^{log_n}"
+                for k in native.launches:
+                    native.launches[k] = 0
+                if not torch.equal(fd.batch_inverse(a), want):
+                    raise Failed(f"{key} != plain")
+                rec[key + " launches"] = native.launches[fd.ops.inv_counter]
+                rec[key + " ms"] = cuda_ms(lambda: fd.batch_inverse(a), reps)
+                if hasattr(native.cuda_lib(), "lw_dense_inverse_info"):
+                    launch = lambda: checked(lib.lw_dense_inverse(  # noqa: E731
+                        kid, a.data_ptr(), out.data_ptr(), n, stream), "lw_dense_inverse")
+                else:  # a tree before slice 14: three launches on scratch
+                    words = ctypes.c_long()
+                    lib.lw_dense_batch_inverse_plan(kid, n, ctypes.byref(words))
+                    scratch = torch.empty(max(words.value, 1), dtype=torch.int32, device=dev)
+                    launch = lambda scratch=scratch: checked(  # noqa: E731
+                        lib.lw_dense_batch_inverse(kid, a.data_ptr(), out.data_ptr(),
+                                                   scratch.data_ptr(), n, stream),
+                        "lw_dense_batch_inverse")
+                launch()
+                if not torch.equal(out, want):
+                    raise Failed(f"{key} launches alone != plain")
+                rec[key + " kernel ms"] = cuda_ms(launch, reps)
+                del a, b, out, want
+                torch.cuda.empty_cache()
+
+        def quotient(F, e, c):
+            """provers/plonk/prover.py's quotient_evaluations (slice 14), here
+            so that it runs against any tree's field ops"""
+            add3 = lambda u, v, w: F.add(F.add(u, v), w)  # noqa: E731
+            a, b, cc = e["a"], e["b"], e["c"]
+            gates = add3(F.add(F.mul(F.mul(a, b), e["qm"]), F.mul(a, e["ql"])),
+                         F.add(F.mul(b, e["qr"]), F.mul(cc, e["qo"])), F.add(e["qc"], e["pi"]))
+            beta, gamma = c["beta"], c["gamma"]
+            xb = F.mul(e["x"], beta)
+            f_i = F.mul(F.mul(add3(a, xb, gamma), add3(b, F.mul(xb, c["k1"]), gamma)),
+                        add3(cc, F.mul(xb, c["k2"]), gamma))
+            g_i = F.mul(F.mul(add3(a, F.mul(e["s1"], beta), gamma),
+                              add3(b, F.mul(e["s2"], beta), gamma)),
+                        add3(cc, F.mul(e["s3"], beta), gamma))
+            perm1 = F.sub(F.mul(g_i, e["zw"]), F.mul(f_i, e["z"]))
+            perm2 = F.mul(F.sub(e["z"], c["one"]), e["l1"])
+            num = F.add(F.mul(F.add(F.mul(perm2, c["alpha"]), perm1), c["alpha"]), gates)
+            return F.mul(num, e["zh_inv"])
+
+        def t_of(F, e, c):  # provers/groth16/qap.py's t, then h
+            return F.sub(F.mul(e["t"], c["off"]), c["one"])
+
+        def h_of(F, e, c):
+            return F.mul(F.sub(F.mul(e["l"], e["r"]), e["o"]), e["t_inv"])
+
+        names = ("a", "b", "c", "ql", "qr", "qm", "qo", "qc", "pi", "x", "z", "zw", "s1", "s2",
+                 "s3", "l1", "zh_inv")
+        fr = fields.BN254Fr
+        ev = {k: canonical(fr, (1 << 18,)) for k in names}
+        cs = {k: canonical(fr, (1,)) for k in ("beta", "gamma", "k1", "k2", "alpha", "one")}
+        fb = fields.BLS12377Fr
+        lrc = canonical(fb, (3, 1 << 17))
+        ev_h = {"t": canonical(fb, (1 << 17,)), "l": lrc[:, 0], "r": lrc[:, 1], "o": lrc[:, 2],
+                "t_inv": canonical(fb, (1 << 17,))}
+        cs_h = {"off": canonical(fb, (1,)), "one": fb.ones((1,), dev)}
+        plain = lambda fd: fd.plain() if hasattr(fd, "plain") else fd  # noqa: E731
+        cases = {"plonk quotient 2^18": (fr, quotient, ev, cs),
+                 "groth16 t 2^17": (fb, t_of, ev_h, cs_h),
+                 "groth16 h 2^17": (fb, h_of, ev_h, cs_h)}
+        for key, (fd, expr, e, c) in cases.items():
+            if hasattr(fd.ops, "chain"):  # one program launch
+                def run(fd=fd, expr=expr, e=e, c=c):
+                    ch = fd.ops.chain()
+                    ins = lambda d: {k: ch.input(v) for k, v in d.items()}  # noqa: E731
+                    return ch.run(expr(ch, ins(e), ins(c)))
+            else:  # one launch an op
+                run = lambda fd=fd, expr=expr, e=e, c=c: expr(fd, e, c)  # noqa: E731
+            for k in native.launches:
+                native.launches[k] = 0
+            got = run()
+            rec[key + " launches"] = {k: v for k, v in native.launches.items() if v}
+            if not torch.equal(got, expr(plain(fd), e, c)):
+                raise Failed(f"{key} != plain")
+            rec[key + " ms"] = cuda_ms(run, 20)
+        del ev, cs, lrc, ev_h
+        torch.cuda.empty_cache()
+        for name, make, suffix in (("plonk_2^16_warm", plonk_prover, ""),
+                                   ("groth16_2^16_warm", groth16_prover, "_bls12_377")):
+            prove_once = make()
+            for k in native.launches:
+                native.launches[k] = 0
+            _, stats = profile(prove_once, top=80)
+
+            def of(*marks):
+                hit = [v for k, v in stats["by_kernel"].items() if any(m in k for m in marks)]
+                return sum(v["ms"] for v in hit), sum(v["launches"] for v in hit)
+
+            k8_ms, k8_traced = of("dense_field_op", "dense_field_program")
+            k9_ms, k9_traced = of("dense_inverse", "batch_inverse")
+            rec[name + "_kernels_8_9"] = {
+                "kernel_8_device_ms": k8_ms, "kernel_8_traced_launches": k8_traced,
+                "kernel_8_program_device_ms": of("dense_field_program")[0],
+                "kernel_8_launches": native.launches["dense_field" + suffix]
+                + native.launches.get("dense_program" + suffix, 0),
+                "kernel_8_program_launches": native.launches.get("dense_program" + suffix, 0),
+                "kernel_9_device_ms": k9_ms, "kernel_9_traced_launches": k9_traced,
+                "kernel_9_launches": native.launches["dense_inv" + suffix],
+                "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
+            del prove_once
+            torch.cuda.empty_cache()
+
     runs = {"prove": run_prove, "fft": run_fft, "field": run_field, "inverse": run_inverse,
             "bucket": run_bucket, "plonk": run_plonk, "dense_fft": run_dense_fft,
-            "small": run_small}
+            "small": run_small, "dense": run_dense}
     try:
         for group in GROUPS:
             if group in groups:

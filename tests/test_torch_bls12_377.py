@@ -13,7 +13,7 @@ against Python ints, the port's host arithmetic and the JAX package.
 * ``csrc/dense.cuh``'s 6-word and 4-word products, sums, inversion and
   power, ``dense32.cuh``'s product and butterfly at 12 and 8 limbs,
   ``ntt_dense.cuh``'s pass block over BLS12-377 Fr and
-  ``batch_inverse.cuh``'s levels at 12 and 8 limbs, built with ``g++``
+  kernel 9's blocks (``dense_inverse.cuh``) at 12 and 8 limbs, built with ``g++``
   (plain C++, or ``mont.cuh``'s emulated carry flag for ``dense32.cuh``)
   and held against Python ints and the plain versions; they skip without
   ``g++``;
@@ -166,7 +166,7 @@ _HOST_SRC = """
 #include <vector>
 #include "dense.cuh"
 #include "ntt_dense.cuh"
-#include "batch_inverse.cuh"
+#include "dense_inverse.cuh"
 
 template <class Q, class F = LwDense<Q>>
 static void elementwise(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, long n,
@@ -207,24 +207,35 @@ extern "C" void ntt_pass(const int32_t* x, int32_t* out, const int32_t* pw, long
         lw_dense_ntt_pass_block<LwBls12377Fr32>(P, b, 0, 1, sm.data());
 }
 
-template <class F>
-static int inverse_levels(const int32_t* x, int32_t* out, long n, int T, int L) {
-    LwInvPlan P = lw_inv_plan(n, T, L, F::LIMBS);
-    std::vector<int32_t> scratch(P.scratch_words + 1, 0x5A5A5A5A);
-    std::vector<uint32_t> sm(lw_inv_smem_words(T, F::LIMBS), 0xA5A5A5A5u);
-    for (int i = 0; i < P.launches; i++) {
-        LwInvLaunch l = lw_inv_launch(P, i, x, out, scratch.data(), T, L);
-        for (long b = 0; b < l.lev.tiles; b++)
-            lw_inv_block<F>(l.lev, l.mode, b, 0, 1, sm.data());
-    }
-    return P.launches;
+// one batch inversion by kernel 9's blocks (dense_inverse.cuh), block by
+// block with tid = 0, nt = 1, at T threads and R rounds of K elements a
+// thread
+template <class F, int K>
+static int inverse_blocks(const int32_t* x, int32_t* out, long n, int T, int R) {
+    std::vector<uint32_t> tree(lw_di_smem_words(T, F::LIMBS), 0xA5A5A5A5u);
+    int blocks = 0;
+    for (long b = 0; b * T * K * R < n; b++, blocks++)
+        lw_dn_inv_block<F, K, 256>(x, out, n, b, T, R, 0, 1, tree.data());
+    return blocks;
 }
 
-// every launch of a batch inversion, block by block with tid = 0, nt = 1
-extern "C" int batch_inverse(int field, const int32_t* x, int32_t* out, long n, int T, int L) {
-    if (!lw_inv_shape_ok(T, L)) return -1;
-    if (field == LW_DENSE_BLS12_377_FR) return inverse_levels<LwBls12377Fr>(x, out, n, T, L);
-    return inverse_levels<LwBls12377Fq>(x, out, n, T, L);
+template <class F>
+static int inverse_k(const int32_t* x, int32_t* out, long n, int T, int K, int R) {
+    if (T < 1 || T > 256 || (T & (T - 1)) || R < 1) return -1;
+    switch (K) {
+        case 1: return inverse_blocks<F, 1>(x, out, n, T, R);
+        case 2: return inverse_blocks<F, 2>(x, out, n, T, R);
+        case 4: return inverse_blocks<F, 4>(x, out, n, T, R);
+        case 8: return inverse_blocks<F, 8>(x, out, n, T, R);
+        default: return -1;
+    }
+}
+
+// a batch inversion by kernel 9's blocks; the number of blocks
+extern "C" int batch_inverse(int field, const int32_t* x, int32_t* out, long n, int T, int K,
+                             int R) {
+    if (field == LW_DENSE_BLS12_377_FR) return inverse_k<LwBls12377Fr32>(x, out, n, T, K, R);
+    return inverse_k<LwBls12377Fq32>(x, out, n, T, K, R);
 }
 """
 
@@ -247,7 +258,7 @@ def host(tmp_path_factory):
     lib.dense_op.restype = None
     lib.ntt_pass.argtypes = [P, P, P, L, I, I, I, I]
     lib.ntt_pass.restype = None
-    lib.batch_inverse.argtypes = [I, P, P, L, I, I]
+    lib.batch_inverse.argtypes = [I, P, P, L, I, I, I]
     lib.batch_inverse.restype = I
     return lib
 
@@ -353,11 +364,11 @@ def test_host_ntt_pass_block_equals_plain(host, log_n):
 
 
 @pytest.mark.parametrize("name", sorted(FIELDS))
-@pytest.mark.parametrize("n, tile", [(100, (4, 2)), (700, (8, 4)), (3000, (256, 8))])
+@pytest.mark.parametrize("n, tile", [(100, (4, 2, 3)), (700, (8, 4, 2)), (3000, (256, 8, 1))])
 def test_host_batch_inverse_levels_equal_plain(host, name, n, tile):
-    """Kernel 9's launches over the dense product at 12 limbs (Fq) and 8
-    (Fr), one to three levels of tiles, zeros included, against the plain
-    version."""
+    """Kernel 9's blocks (``dense_inverse.cuh``) at 12 limbs (Fq) and 8
+    (Fr), T threads and R rounds of K elements a thread, every block of a
+    call, zeros included, against the plain version."""
     f = FIELDS[name]
     vals = _vals(f.p, n, n)
     for i in range(0, n, 37):

@@ -13,8 +13,8 @@ against Python ints and the JAX package.
   minutes on a CPU);
 * ``csrc/dense.cuh``'s product, square, power and inversion, ``dense32.cuh``'s
   product and butterfly, the dense NTT pass
-  block over BN254 Fr (``ntt_dense.cuh``) and the batch-inversion levels
-  (``batch_inverse.cuh``) on the dense product, built with ``g++`` (plain
+  block over BN254 Fr (``ntt_dense.cuh``) and kernel 9's blocks
+  (``dense_inverse.cuh``), built with ``g++`` (plain
   C++, or ``mont.cuh``'s emulated carry flag for ``dense32.cuh``) and held
   against Python ints and the plain versions; they skip without ``g++``;
 * the dense passes' grids at the provers' sizes (``ntt.dense_cols_log``).
@@ -138,7 +138,7 @@ _HOST_SRC = """
 #include <vector>
 #include "dense.cuh"
 #include "ntt_dense.cuh"
-#include "batch_inverse.cuh"
+#include "dense_inverse.cuh"
 
 template <class Q, class F = LwDense<Q>>
 static void elementwise(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, long n,
@@ -177,22 +177,35 @@ extern "C" void ntt_pass(const int32_t* x, int32_t* out, const int32_t* pw, long
         lw_dense_ntt_pass_block<LwBn254Fr32>(P, b, 0, 1, sm.data());
 }
 
-// every launch of a batch inversion, block by block with tid = 0, nt = 1
-extern "C" int batch_inverse(int field, const int32_t* x, int32_t* out, long n, int T, int L) {
-    if (!lw_inv_shape_ok(T, L)) return -1;
-    LwInvPlan P = lw_inv_plan(n, T, L);
-    std::vector<int32_t> scratch(P.scratch_words + 1, 0x5A5A5A5A);
-    std::vector<uint32_t> sm(lw_inv_smem_words(T), 0xA5A5A5A5u);
-    for (int i = 0; i < P.launches; i++) {
-        LwInvLaunch l = lw_inv_launch(P, i, x, out, scratch.data(), T, L);
-        for (long b = 0; b < l.lev.tiles; b++) {
-            if (field == LW_DENSE_BN254_FR)
-                lw_inv_block<LwBn254Fr>(l.lev, l.mode, b, 0, 1, sm.data());
-            else
-                lw_inv_block<LwBn254Fq>(l.lev, l.mode, b, 0, 1, sm.data());
-        }
+// one batch inversion by kernel 9's blocks (dense_inverse.cuh), block by
+// block with tid = 0, nt = 1, at T threads and R rounds of K elements a
+// thread
+template <class F, int K>
+static int inverse_blocks(const int32_t* x, int32_t* out, long n, int T, int R) {
+    std::vector<uint32_t> tree(lw_di_smem_words(T, F::LIMBS), 0xA5A5A5A5u);
+    int blocks = 0;
+    for (long b = 0; b * T * K * R < n; b++, blocks++)
+        lw_dn_inv_block<F, K, 256>(x, out, n, b, T, R, 0, 1, tree.data());
+    return blocks;
+}
+
+template <class F>
+static int inverse_k(const int32_t* x, int32_t* out, long n, int T, int K, int R) {
+    if (T < 1 || T > 256 || (T & (T - 1)) || R < 1) return -1;
+    switch (K) {
+        case 1: return inverse_blocks<F, 1>(x, out, n, T, R);
+        case 2: return inverse_blocks<F, 2>(x, out, n, T, R);
+        case 4: return inverse_blocks<F, 4>(x, out, n, T, R);
+        case 8: return inverse_blocks<F, 8>(x, out, n, T, R);
+        default: return -1;
     }
-    return P.launches;
+}
+
+// a batch inversion by kernel 9's blocks; the number of blocks
+extern "C" int batch_inverse(int field, const int32_t* x, int32_t* out, long n, int T, int K,
+                             int R) {
+    if (field == LW_DENSE_BN254_FR) return inverse_k<LwBn254Fr32>(x, out, n, T, K, R);
+    return inverse_k<LwBn254Fq32>(x, out, n, T, K, R);
 }
 """
 
@@ -215,7 +228,7 @@ def host(tmp_path_factory):
     lib.dense_op.restype = None
     lib.ntt_pass.argtypes = [P, P, P, L, I, I, I, I]
     lib.ntt_pass.restype = None
-    lib.batch_inverse.argtypes = [I, P, P, L, I, I]
+    lib.batch_inverse.argtypes = [I, P, P, L, I, I, I]
     lib.batch_inverse.restype = I
     return lib
 
@@ -326,10 +339,11 @@ def test_dense_passes_fill_the_card():
 
 
 @pytest.mark.parametrize("name", sorted(FIELDS))
-@pytest.mark.parametrize("n, tile", [(100, (4, 2)), (700, (8, 4)), (3000, (256, 8))])
+@pytest.mark.parametrize("n, tile", [(100, (4, 2, 3)), (700, (8, 4, 2)), (3000, (256, 8, 1))])
 def test_host_batch_inverse_levels_equal_plain(host, name, n, tile):
-    """Kernel 9's launches over the dense product (one to three levels of
-    tiles), zeros included, against the plain version."""
+    """Kernel 9's blocks (``dense_inverse.cuh``) at T threads and R rounds
+    of K elements a thread, every block of a call (one to a dozen), zeros
+    included, against the plain version."""
     f, _ = FIELDS[name]
     vals = _vals(f.p, n, n)
     for i in range(0, n, 37):

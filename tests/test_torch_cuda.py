@@ -516,11 +516,11 @@ def test_dense_field_kernel_matches_plain(dev, name):
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
-@pytest.mark.parametrize("shape, launches", [((3, 7, 1001), 3), ((2047,), 1), ((2049,), 3),
-                                             ((1 << 18,), 3)])
+@pytest.mark.parametrize("shape, launches", [((3, 7, 1001), 1), ((2047,), 1), ((2049,), 1),
+                                             ((1 << 18,), 1)])
 def test_dense_batch_inverse_kernel_matches_plain(dev, name, shape, launches):
     """Kernel 9 with zeros scattered and at both ends, bitwise against the
-    plain version, with its exact launches."""
+    plain version, with its exact launches (one a call)."""
     f = _bn254()[name]
     n = int(np.prod(shape))
     a = _dense_values(f, n, n)[:, :n].clone()
@@ -531,6 +531,67 @@ def test_dense_batch_inverse_kernel_matches_plain(dev, name, shape, launches):
     got = _on_card(f.batch_inverse, a.to(dev))
     assert native.launches["dense_inv"] == launches
     assert torch.equal(got, f.ops.batch_inverse_plain(a.to(dev)).cpu())
+
+
+def _dense_fields_all():
+    return {"bn254_" + k: v for k, v in _bn254().items()} | {
+        "bls12_377_" + k: v for k, v in _bls().items()}
+
+
+@pytest.mark.parametrize("name", ["bn254_fr", "bn254_fq", "bls12_377_fr", "bls12_377_fq"])
+def test_dense_field_kernel_elements_and_broadcasts(dev, name):
+    """Kernel 8 at its elements a thread over ragged sizes (1, 2 and 4 short
+    of a block's elements and past it), with a broadcast operand on either
+    side and a row of a 3-row tensor as an operand, bitwise against plain."""
+    f = _dense_fields_all()[name]
+    values = _dense_values if name.startswith("bn254") else _bls_values
+    for n in (1, 511, 513, 1023, 1025, 4096):
+        a = values(f, n, n, zeros=2)[:, :n].contiguous()
+        b = values(f, n, n + 1)[:, :n].flip(1).contiguous()
+        c = b[:, n // 2:n // 2 + 1].contiguous()
+        rows = torch.stack([b, a, b], dim=1)
+        for fn, args in ((f.mul, (a, b)), (f.mul, (c, a)), (f.add, (a, c)), (f.sub, (c, a)),
+                         (f.mul, (rows[:, 1], b)), (f.square, (a,)), (f.neg, (a,))):
+            assert torch.equal(_on_card(fn, *(t.to(dev) for t in args)), fn(*args)), n
+
+
+@pytest.mark.parametrize("name", ["bn254_fr", "bn254_fq", "bls12_377_fr", "bls12_377_fq"])
+@pytest.mark.parametrize("log_n", [12, 17, 18])
+def test_dense_programs_match_plain(dev, name, log_n):
+    """Kernel 8's program entry on Plonk's round-3 quotient and on Groth16's
+    h (its three operands rows of one tensor), bitwise against
+    ``program_plain``, one launch each."""
+    from lambda_elliptic_curves_tpu_torch.provers.plonk.prover import quotient_evaluations
+
+    f = _dense_fields_all()[name]
+    n = 1 << log_n
+    gen = torch.Generator(device=dev).manual_seed(log_n)
+    top = f.p >> (32 * (f.num_limbs - 1))
+
+    def rand(m):  # canonical: the top limb below p's
+        x = torch.randint(0, 1 << 31, (f.num_limbs, m), generator=gen, device=dev,
+                          dtype=torch.int32)
+        x[-1] %= top
+        return x
+    names = ("a", "b", "c", "ql", "qr", "qm", "qo", "qc", "pi", "x", "z", "zw", "s1", "s2",
+             "s3", "l1", "zh_inv")
+    ch = f.ops.chain()
+    e = {k: ch.input(rand(n)) for k in names}
+    c = {k: ch.input(rand(1)) for k in ("beta", "gamma", "k1", "k2", "alpha", "one")}
+    out = quotient_evaluations(ch, e, c)
+    native.launches.update({k: 0 for k in native.launches})
+    got = ch.run(out)
+    assert native.launches[f.ops.program_counter] == 1
+    assert sum(native.launches.values()) == 1
+    assert torch.equal(got, f.ops.program_plain(ch.steps_encoded(), ch.inputs))
+    lrc = rand(3 * n).reshape(f.num_limbs, n, 3).transpose(1, 2).contiguous()
+    ch = f.ops.chain()
+    h = ch.mul(ch.sub(ch.mul(ch.input(lrc[:, 0]), ch.input(lrc[:, 1])), ch.input(lrc[:, 2])),
+               ch.input(rand(n)))
+    native.launches[f.ops.program_counter] = 0
+    got = ch.run(h)
+    assert native.launches[f.ops.program_counter] == 1
+    assert torch.equal(got, f.ops.program_plain(ch.steps_encoded(), ch.inputs))
 
 
 @pytest.mark.parametrize("field", [0, 2, 3])
@@ -811,6 +872,7 @@ def test_plonk_proof_on_card_equals_jax_fixture(dev, case):
     proof = Prover(kzg, TestRandomFieldGenerator(f)).prove(witness, public_input, cpi, vk)
     assert native.launches["dense_ntt"] > 0 and native.launches["dense_inv"] > 0
     assert native.launches["dense_field"] > 0
+    assert native.launches["dense_program"] == 1  # round 3's quotient
     assert proof_to_json(proof) == data["proof"]
     assert Verifier(kzg).verify(proof, public_input, cpi, vk)
 
@@ -892,11 +954,12 @@ def test_bls12_377_field_kernel_matches_plain(dev, name):
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
-@pytest.mark.parametrize("shape, launches", [((3, 7, 1001), 3), ((2047,), 1), ((2049,), 3),
-                                             ((1 << 18,), 3)])
+@pytest.mark.parametrize("shape, launches", [((3, 7, 1001), 1), ((2047,), 1), ((2049,), 1),
+                                             ((1 << 18,), 1)])
 def test_bls12_377_batch_inverse_kernel_matches_plain(dev, name, shape, launches):
     """Kernel 9 over BLS12-377 Fr and Fq (12 limbs) with zeros scattered and
-    at both ends, bitwise against the plain version, with its launches."""
+    at both ends, bitwise against the plain version, with its launches (one
+    a call)."""
     f = _bls()[name]
     n = int(np.prod(shape))
     a = _bls_values(f, n, n)[:, :n].clone()
@@ -1033,6 +1096,7 @@ def test_groth16_fixture_proofs_on_card_equal_jax(dev, case):
     suffix = "" if case == "bn254" else "_bls12_377"
     for k in ("dense_field", "dense_inv", "dense_ntt"):
         assert native.launches[k + suffix] > 0, k
+    assert native.launches["dense_program" + suffix] == 2  # t and h
     assert interop.proving_key_to_json(pk) == data["pk"]
     assert interop.verifying_key_to_json(vk) == data["vk"]
     assert interop.proof_to_json(proof) == data["proof"]
