@@ -134,7 +134,8 @@ Phases (one result line each, with its seconds):
      its round-3 quotient one launch of kernel 8's program entry, its SRS
      kernel 10; the Groth16 prove the BLS12-377 instances of kernels 1, 8,
      9 and 11 and nothing else, kernel 8 fewer than 1,000 times and its
-     program entry twice (t and h), its setup kernel 10)
+     program entry twice (t and h), its setup kernel 10; kernel 10 exactly
+     once for the SRS, twice for the Groth16 setup, never in a prove)
   7. a torch.profiler trace of one warm prove at 2^16 and at 2^20 rows, at
      2^20 rows at the preset, of both small-field 2^20-row proves, of a
      warm Plonk prove at 2^16 gates and of a warm Groth16 prove at 2^16
@@ -212,15 +213,16 @@ STARK252_KERNELS = ("ntt", "keccak", "field", "field_inv", "grind")
 SMALL_KERNELS = ("small_field", "small_ntt", "keccak")
 #: the kernels of the Plonk proves over BN254 (kernel 1's BN254 Fr entry,
 #: kernels 8, 9 and 11: the KZG commitments' Pippenger), the kernel of its
-#: SRS (kernel 10: the comb's mixed additions), and the log2 of the gates
-#: of phase 5g's circuit
+#: SRS (kernel 10: the comb, one launch), and the log2 of the gates of
+#: phase 5g's circuit
 BN254_KERNELS = ("dense_ntt", "dense_field", "dense_program", "dense_inv", "msm_bucket")
 BN254_SETUP_KERNELS = ("curve_op",)
 PLONK_LOG_GATES = 16
 #: the kernels of the Groth16 proves over BLS12-377 (the same four kernels'
 #: BLS12-377 instances: Fr on four words, Fq on six), the kernel of its
-#: setup (kernel 10: the combs), and the log2 of the constraints of phase
-#: 5i's circuit and of the points of phase 5h's MSMs
+#: setup (kernel 10: the G1 and the G2 comb, a launch each), and the log2
+#: of the constraints of phase 5i's circuit and of the points of phase 5h's
+#: MSMs
 BLS_KERNELS = ("dense_ntt_bls12_377", "dense_field_bls12_377", "dense_program_bls12_377",
                "dense_inv_bls12_377", "msm_bucket_bls12_377")
 BLS_SETUP_KERNELS = ("curve_op_bls12_377",)
@@ -240,6 +242,14 @@ CURVE_GROUPS = ("bn254_g1", "bn254_g2", "bls12_377_g1", "bls12_377_g2")
 CURVE_SOURCES = ("curve.cu", "curve_g2.cu", "msm_bucket.cu", "msm_bucket_g2.cu",
                  "msm_bucket_bls12_377_g2.cu")
 CURVE_LANES = 17 << 16
+#: the fixed-base comb's lanes on the main path, which phase 2m holds kernel
+#: 10's comb entry at (``tools/sweep_curve.py`` times the same): the Plonk
+#: SRS (n + 6 points at 2^PLONK_LOG_GATES gates), about the Groth16 setup's
+#: G1 comb (5 x 2^m) and its G2 comb (2^m + 6) at 2^GROTH16_LOG_CONSTRAINTS
+#: constraints, and BN254 G2 at 2^16
+COMB_LANES = {"bn254_g1": (1 << PLONK_LOG_GATES) + 6, "bn254_g2": 1 << 16,
+              "bls12_377_g1": 5 << GROTH16_LOG_CONSTRAINTS,
+              "bls12_377_g2": (1 << GROTH16_LOG_CONSTRAINTS) + 6}
 # base products and base sums of one group op as curve.cuh writes it, over
 # the curve's own field (an Fp2 product is 3 base products and 5 sums for
 # BN254, u^2 = -1, or 9 for BLS12-377, u^2 = -5; an Fp2 sum 2): the mixed
@@ -416,7 +426,9 @@ def _ptxas_summary(log: str) -> dict:
         group = field + ("_g2" if "LwFp2" in mangled else "_g1")
         for kind, mark in (("accumulate, mixed", "accumulate_kernel.*Lb1E"),
                            ("accumulate", "accumulate_kernel"), ("reduce", "reduce_kernel"),
-                           ("kernel 10", "curve_point_op_kernel"), ("add_mixed", "9add_mixed"), ("add", "3add"), ("double", "3dbl")):
+                           ("kernel 10", "curve_point_op_kernel"),
+                           ("kernel 10 comb", "curve_comb_kernel"), ("add_mixed", "9add_mixed"),
+                           ("add", "3add"), ("double", "3dbl")):
             if re.search(mark, mangled):
                 return f"{kind} {group}"
         return None
@@ -1949,19 +1961,37 @@ def _curve_ops(group):
     return M.make_ops(curve), _dense_fields(group.rsplit("_", 1)[0])["fq"], group.endswith("g2")
 
 
-def _curve_bound(state, group, counts: dict, nbytes: float):
-    """(least ms, what bounds it) of the group ops ``counts`` (an op of
-    CURVE_OP_COUNTS -> how many) moving ``nbytes``."""
+def _curve_bound(state, group, counts: dict, nbytes: float) -> dict:
+    """The bound of the group ops ``counts`` (an op of CURVE_OP_COUNTS ->
+    how many) moving ``nbytes``: the larger of the bytes and the base
+    products and sums at dense32.cuh's SASS (tools/dense_mul.py; BN254 Fq
+    at BN254 Fr's, a sum half a butterfly), and beside it the fixed count
+    (490 / 1071 instructions a product, 48 / 72 a sum)."""
+    from lambda_elliptic_curves_tpu_torch.tools import dense_mul
+
     _, fq, g2 = _curve_ops(group)
-    mul_ops, add_ops = ((DENSE_MUL_OPS, DENSE_ADD_OPS) if fq.ops.WORDS == 4
-                        else (DENSE6_MUL_OPS, DENSE6_ADD_OPS))
     prods = adds = 0
     for op, count in counts.items():
         p, a = CURVE_OP_COUNTS[op]
         if g2:
             p, a = 3 * p, p * (5 if group.startswith("bn254") else 9) + 2 * a
         prods, adds = prods + count * p, adds + count * a
-    return bound(state, nbytes, ops((prods, mul_ops), (adds, add_ops)))
+    if "dense_mul_sass" not in state:
+        state["dense_mul_sass"] = dense_mul.sass_counts()
+    key = f"{_sass_field(fq)} {dense_mul.VARIANTS[1]}"
+    prod = dense_mul.sass_ops(state["dense_mul_sass"][key])
+    half = tuple(v / 2 for v in dense_mul.sass_ops(state["dense_mul_sass"][key + " butterfly"]))
+    b_ms, b_by = bound(state, nbytes, ops((prods, prod), (adds, half)))
+    mul_ops, add_ops = ((DENSE_MUL_OPS, DENSE_ADD_OPS) if fq.ops.WORDS == 4
+                        else (DENSE6_MUL_OPS, DENSE6_ADD_OPS))
+    fixed_ms, _ = bound(state, nbytes, ops((prods, mul_ops), (adds, add_ops)))
+    return {"bound_ms": b_ms, "bound_by": b_by, "fixed_bound_ms": fixed_ms,
+            "sass_instructions": {"product": state["dense_mul_sass"][key]["instructions"],
+                                  "sum": state["dense_mul_sass"][key + " butterfly"][
+                                      "instructions"] / 2},
+            "bound_counts": f"{nbytes:.0f} B; {prods} base products at {prod} and {adds} "
+                            f"sums at {half} (multiply-adds, logic, other; dense32.cuh's "
+                            f"SASS, a sum half a butterfly); ops {counts}"}
 
 
 def _curve_values(fq, g2, n, gen):
@@ -2179,15 +2209,16 @@ def _time_bucket_phase(state, group, ops, ids, pts, nbuckets: int) -> dict:
     work = _bucket_work(sorted_ids, nonempty, 16, 16)
     W, S = ids.shape
     pbytes = 3 * ops.f.num_limbs * 4
-    b_ms, b_by = _curve_bound(state, group, work, 16.0 * W * S + pbytes * (S + W))
+    b = _curve_bound(state, group, work, 16.0 * W * S + pbytes * (S + W))
     ms = cuda_ms(lambda: _bucket_phase(ops, ids, pts, nbuckets), 3)
     acc_ms = cuda_ms(lambda: M.bucket_sums(ops, ids, pts, nbuckets), 3)
     reduce_ms = cuda_ms(lambda: M.weighted_bucket_sums(ops, table), 3)
     plan = _bucket_launches(ops, W, S, nbuckets)
     check(launches == len(plan), f"{group}: kernel 11 launched {launches} times, not the "
           f"{len(plan)} of its plan")
-    return {"ms": ms, "accumulate_ms": acc_ms, "reduce_ms": reduce_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "share": b_ms / ms, "launches": launches,
+    return {"ms": ms, "accumulate_ms": acc_ms, "reduce_ms": reduce_ms, **b,
+            "share": b["bound_ms"] / ms, "fixed_share": b["fixed_bound_ms"] / ms,
+            "launches": launches,
             "accumulate_launches": acc_launches, "work": work, "plan": plan,
             "chain": sum(x["chain"] for x in plan)}
 
@@ -2264,9 +2295,10 @@ def phase_curve_kernels(state):
                 check(err == 0, f"{group} {name}: kernel 10 != its plain version")
                 del got, want
                 ms = cuda_ms(kern, 3)
-                b_ms, b_by = _curve_bound(state, group, counts, nbytes)
-                times[group][name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                                      "share": b_ms / ms, "plain_ms": plain_ms}
+                b = _curve_bound(state, group, counts, nbytes)
+                times[group][name] = {"ms": ms, **b, "share": b["bound_ms"] / ms,
+                                      "fixed_share": b["fixed_bound_ms"] / ms,
+                                      "plain_ms": plain_ms}
             del a, b, am, bm, cases
             torch.cuda.empty_cache()
             # kernel 11 over skewed ids at 2^12 points, 12-bit windows: two
@@ -2282,18 +2314,100 @@ def phase_curve_kernels(state):
             buckets[group]["occupancy"] = _bucket_occupancy(group)
             del ids, pts
             torch.cuda.empty_cache()
+        combs = {group: _hold_comb(state, group, gen)
+                 for group in ("bn254_g1", "bls12_377_g1", "bls12_377_g2")}
         for name, group in (("curve_op", "bn254_g1"), ("curve_op_bls12_377", "bls12_377_g2")):
-            t = times[group]["add_mixed"]
+            t = combs[group]
             state["kernels"][name].update(
-                max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=None,
-                shape=f"{group} add_mixed over {n} lanes (17 x 2^16, the MSMs' scan width)")
-        state["curve_op"], state["bucket_skewed"] = times, buckets
+                max_abs_err=max(err, t["max_abs_err"]), ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                fixed_bound_ms=t["fixed_bound_ms"], sass_instructions=t["sass_instructions"],
+                bound_counts=t["bound_counts"], whole_call_ms=t["whole_call_ms"],
+                occupancy=t["occupancy"], shape=f"{group} fixed-base comb over {t['lanes']} "
+                f"lanes ({t['what']}), {t['windows']} windows of {t['window']} bits, the launch "
+                "alone")
+        state["curve_op"], state["bucket_skewed"] = {"ops": times, "comb": combs}, buckets
         return ("kernel 10: add, add_mixed, double and a broadcast operand bitwise equal to "
-                f"plain for {', '.join(CURVE_GROUPS)} at {n} lanes; kernel 11 bitwise equal "
-                "to plain over skewed ids; " + json.dumps({"curve_op": times,
-                                                           "msm_bucket": buckets}))
+                f"plain for {', '.join(CURVE_GROUPS)} at {n} lanes, the comb at its main-path "
+                "shapes (one launch each); kernel 11 bitwise equal to plain over skewed ids; "
+                + json.dumps({"curve_op": state["curve_op"], "msm_bucket": buckets}))
     run()
+
+
+def _curve_info(group: str) -> dict:
+    """Kernel 10's two entries for ``group``: threads a block, blocks an SM
+    at once (the occupancy calculator), registers and local bytes a thread
+    (``lw_curve_info``)."""
+    import ctypes
+
+    from lambda_elliptic_curves_tpu_torch import native
+
+    out = {}
+    for kind, name in ((0, "op"), (1, "comb")):
+        res = (ctypes.c_long * 4)()
+        err = native.cuda_lib().lw_curve_info(CURVE_GROUPS.index(group), kind, res)
+        check(err == 0, f"{group} {name}: the occupancy query failed ({err})")
+        out[name] = {"threads": res[0], "blocks_per_sm": res[1], "registers": res[2],
+                     "local_bytes": res[3]}
+    return out
+
+
+def _hold_comb(state, group: str, gen) -> dict:
+    """Kernel 10's comb entry at its main-path shape (``COMB_LANES``) over
+    random scalars drawn on the card: one launch a call, bitwise equal to
+    the plain comb (``fixed_base_multiples`` with the plain group law: a
+    window at a time over every lane); the launch alone (CUDA events, the
+    arguments and outputs made once) and whole calls, against the bound of
+    the mixed additions its ids need (a lane adds every nonzero window
+    after its first) at dense32.cuh's SASS and the fixed count, with the
+    bytes of its digits read, its points written and the table read once."""
+    import torch
+    from lambda_elliptic_curves_tpu_torch import native
+    from lambda_elliptic_curves_tpu_torch.curves import msm as M
+    from lambda_elliptic_curves_tpu_torch.tools._timing import cuda_ms, random_digits
+
+    ops, _, _ = _curve_ops(group)
+    curve, n, c = ops.curve, COMB_LANES[group], M.FIXED_BASE_WINDOW
+    bits = M._scalar_bits(curve)
+    windows = -(-bits // c)
+    digits = random_digits(bits, n, gen, M.DIGIT_BITS)
+    digits[:, :3] = M.scalars_to_digits(curve, [0, 1, curve.order - 1], gen.device)
+    base, counter = curve.generator(), ops.counter("curve_op")
+    M.fixed_base_multiples(curve, digits[:, :1], base, ops)  # the table, built and cached
+    native.launches[counter] = 0
+    got = M.fixed_base_multiples(curve, digits, base, ops)
+    torch.cuda.synchronize()
+    check(native.launches[counter] == 1, f"{group} comb: {native.launches[counter]} launches "
+          "of kernel 10, not 1")
+    t0 = time.perf_counter()
+    want = M.fixed_base_multiples(curve, digits, base, ops.plain())
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    check(err == 0, f"{group} comb: kernel 10 != the plain comb over {n} lanes")
+    del want
+    table = M._comb_table(ops, base, c, windows, gen.device)
+    args = M.comb_args(table, digits, c, windows)
+    lib, gid = native.cuda_lib(), curve.kernel_group
+
+    def launch():
+        lib.lw_curve_comb(gid, args, *(o.data_ptr() for o in got), n,
+                          torch.cuda.current_stream().cuda_stream)
+    ms = cuda_ms(launch, 5)
+    whole_ms = cuda_ms(lambda: M.fixed_base_multiples(curve, digits, base, ops), 5)
+    nonzero = (M.window_ids(digits, c, windows) != 0).sum(dim=0)
+    adds = int((nonzero - 1).clamp(min=0).sum())
+    rows = ops.f.num_limbs
+    nbytes = n * (8.0 * digits.shape[0] + 12 * rows) + table[1].numel() * 4 + table[2].numel()
+    b = _curve_bound(state, group, {"add_mixed": adds}, nbytes)
+    m = f"2^{GROTH16_LOG_CONSTRAINTS} constraints"
+    what = {"bn254_g1": f"the Plonk SRS at 2^{PLONK_LOG_GATES} gates",
+            "bls12_377_g1": f"about the Groth16 setup's G1 comb at {m}",
+            "bls12_377_g2": f"the Groth16 setup's G2 comb at {m}"}[group]
+    return {"lanes": n, "what": what, "windows": windows, "window": c, "ms": ms,
+            "whole_call_ms": whole_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "mixed_additions": adds, **b, "share": b["bound_ms"] / ms,
+            "fixed_share": b["fixed_bound_ms"] / ms, "occupancy": _curve_info(group)}
 
 
 def _plonk_fixture_proof(case: str, dev) -> tuple:
@@ -2367,7 +2481,9 @@ def _msm_kernels(state, group, ops, digits, pts_dev, at: str):
         state["kernels"][name].update(
             max_abs_err=bucket["max_abs_err"], ms=bucket["ms"], plain_ms=bucket["plain_ms"],
             bound_ms=bucket["bound_ms"], bound_by=bucket["bound_by"], library_ms=None,
-            share=bucket["share"], occupancy=state["bucket_skewed"][group]["occupancy"],
+            share=bucket["share"], fixed_bound_ms=bucket["fixed_bound_ms"],
+            sass_instructions=bucket["sass_instructions"], bound_counts=bucket["bound_counts"],
+            occupancy=state["bucket_skewed"][group]["occupancy"],
             shape=f"{group} bucket phase ({bucket['launches']} launches: accumulate and "
                   f"reduce levels; the stable sort and the table's fill included) over "
                   + bucket["what"])
@@ -2821,12 +2937,13 @@ def phase_launches(state):
         check(plonk["dense_program"] == 1, f"the Plonk prove ran {plonk['dense_program']} "
               "kernel-8 programs, not 1 (its round-3 quotient)")
         for k in set(STARK252_KERNELS + SMALL_KERNELS + BLS_KERNELS + BLS_SETUP_KERNELS
-                     + ("field_pow",)):
+                     + BN254_SETUP_KERNELS + ("field_pow",)):
             check(plonk.get(k, 0) == 0, f"the Plonk prove launched {k}")
-        # its SRS: the comb's mixed additions on kernel 10
+        # its SRS: the comb, one launch of kernel 10
         srs = state["launches_srs"]
         for k in BN254_SETUP_KERNELS:
-            check(srs.get(k, 0) > 0, f"kernel {k} was not launched by the SRS")
+            check(srs.get(k, 0) == 1, f"the SRS launched kernel {k} {srs.get(k, 0)} times, "
+                  "not once (its comb)")
         for k in set(STARK252_KERNELS + SMALL_KERNELS + BLS_KERNELS + BLS_SETUP_KERNELS):
             check(srs.get(k, 0) == 0, f"the SRS launched {k}")
         # the Groth16 prove over BLS12-377: the BLS12-377 instances of kernels
@@ -2835,17 +2952,18 @@ def phase_launches(state):
         for k in BLS_KERNELS:
             check(groth16.get(k, 0) > 0, f"kernel {k} was not launched by the Groth16 prove")
         for k in set(STARK252_KERNELS + SMALL_KERNELS + BN254_KERNELS + BN254_SETUP_KERNELS
-                     + ("field_pow",)):
+                     + BLS_SETUP_KERNELS + ("field_pow",)):
             check(groth16.get(k, 0) == 0, f"the Groth16 prove launched {k}")
         check(groth16["dense_program_bls12_377"] == 2, "the Groth16 prove ran "
               f"{groth16['dense_program_bls12_377']} kernel-8 programs, not 2 (t and h)")
         check(groth16["dense_field_bls12_377"] < GROTH16_DENSE_FIELD_MAX,
               f"the Groth16 prove launched kernel 8 {groth16['dense_field_bls12_377']} times, "
               f"not fewer than {GROTH16_DENSE_FIELD_MAX}")
-        # its setup: the combs' mixed additions on kernel 10
+        # its setup: the G1 and the G2 comb, one launch of kernel 10 each
         g16_setup = state["launches_groth16_setup"]
         for k in BLS_SETUP_KERNELS:
-            check(g16_setup.get(k, 0) > 0, f"kernel {k} was not launched by the Groth16 setup")
+            check(g16_setup.get(k, 0) == 2, f"the Groth16 setup launched kernel {k} "
+                  f"{g16_setup.get(k, 0)} times, not twice (its two combs)")
         for k in set(STARK252_KERNELS + SMALL_KERNELS + BN254_KERNELS + BN254_SETUP_KERNELS):
             check(g16_setup.get(k, 0) == 0, f"the Groth16 setup launched {k}")
         for counts in [c for _, c, _ in runs] + list(small_runs.values()):

@@ -1,8 +1,9 @@
 // The Jacobian group law of the port's four curve groups, once: BN254 G1
 // (over Fq, 4 words), BN254 G2 (over Fp2 = Fq[u]/(u^2 + 1)), BLS12-377 G1
 // (over Fq, 6 words) and BLS12-377 G2 (over Fp2 = Fq[u]/(u^2 + 5)).  The
-// group law that curve.cu (kernel 10, one op a lane) and msm_bucket.cuh
-// (kernel 11, Pippenger's bucket phase) run.
+// group law that curve.cu (kernel 10: one op a lane, and the fixed-base
+// comb, one lane's whole sum of table entries) and msm_bucket.cuh (kernel
+// 11, Pippenger's bucket phase) run.
 //
 // Replaces the composition of kernel 8 launches in curves/weierstrass.py
 // (JacobianOps.double, add, add_mixed and _complete; the JAX package's
@@ -13,20 +14,24 @@
 // the madd-2007-bl core, and the special cases resolved in _complete's
 // precedence (p2 at infinity -> p1; p1 at infinity -> p2; same x, other
 // y -> the neutral point (1, 1, 0); same x and y -> double(p1)).  Every
-// field op is strict (dense.cuh: canonical in and out), so every value here
-// is the plain composition's, limb for limb, and the host tests
+// field op is strict (dense32.cuh: canonical in and out), so every value
+// here is the plain composition's, limb for limb, and the host tests
 // (tests/test_torch_curve_kernels.py) compare bitwise.  The doubling of an
 // addition is a branch, taken only on the lanes that need it.
 //
-// A value is held in 64-bit words in registers (dense.cuh's packing of the
-// tensors' 32-bit limbs); an Fp2 value is component 0, then component 1,
-// as the DeviceQuadraticField layout has them in a tensor.  A point is the
+// The field arithmetic is dense32.cuh's: the carry-chain Montgomery
+// product on 2 W 32-bit limbs (184 SASS instructions at four words and
+// 504 at six, against the 680 and 1608 of dense.cuh's 64-bit CIOS: sm_90
+// has no 64-bit multiplier) and its carry-chain sums.  A value is held in
+// registers as the tensors' own 32-bit limbs, so a load or a store is a
+// copy; an Fp2 value is component 0, then component 1, as the
+// DeviceQuadraticField layout has them in a tensor.  A point is the
 // Jacobian triple (x, y, z), infinity z = 0.
 #pragma once
 
 #include <stdint.h>
 
-#include "dense.cuh"
+#include "dense32.cuh"
 
 // The product of two base-field values and the three group ops are
 // functions of their own, called from every formula and every kernel:
@@ -42,57 +47,65 @@
 
 template <class Q>
 struct LwFqValue {
-    uint64_t w[Q::W];
+    uint32_t w[2 * Q::W];
 };
 
 template <class Q>
 LW_CURVE_MUL LwFqValue<Q> lw_fq_mul(LwFqValue<Q> a, LwFqValue<Q> b) {
     LwFqValue<Q> r;
-    LwDense<Q>::mul_w(a.w, b.w, r.w);
+    lw_d32_mul<Q>(a.w, b.w, r.w);
     return r;
+}
+
+// 16 bytes at p (16-byte aligned) as four limbs: one vector load on the card
+LW_HD void lw_load16(const int32_t* p, uint32_t* r) {
+#ifdef __CUDA_ARCH__
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    r[0] = v.x;
+    r[1] = v.y;
+    r[2] = v.z;
+    r[3] = v.w;
+#else
+    for (int k = 0; k < 4; k++) r[k] = (uint32_t)p[k];
+#endif
 }
 
 // a base field (BN254 Fq, BLS12-377 Fq) as the group law takes it
 template <class Q>
 struct LwFq {
     typedef LwFqValue<Q> E;
-    typedef LwDense<Q> D;
-    static constexpr int W = Q::W;
-    static constexpr int ROWS = 2 * W;  // int32 rows of a value in a tensor
+    static constexpr int ROWS = 2 * Q::W;  // int32 rows of a value in a tensor
 
-    LW_HDM static void add(const E& a, const E& b, E& r) {
-        E t;
-        D::add_w(a.w, b.w, t.w);
-        r = t;
-    }
-    LW_HDM static void sub(const E& a, const E& b, E& r) {
-        E t;
-        D::sub_w(a.w, b.w, t.w);
-        r = t;
-    }
+    LW_HDM static void add(const E& a, const E& b, E& r) { lw_d32_add<Q>(a.w, b.w, r.w); }
+    LW_HDM static void sub(const E& a, const E& b, E& r) { lw_d32_sub<Q>(a.w, b.w, r.w); }
     LW_HDM static void mul(const E& a, const E& b, E& r) { r = lw_fq_mul<Q>(a, b); }
-    LW_HDM static bool is_zero(const E& a) { return D::w_is_zero(a.w); }
-    LW_HDM static void set_one(E& r) {
+    LW_HDM static bool is_zero(const E& a) {
+        uint32_t acc = 0;
 #pragma unroll
-        for (int i = 0; i < W; i++) r.w[i] = Q::one(i);
+        for (int i = 0; i < ROWS; i++) acc |= a.w[i];
+        return acc == 0;
+    }
+    LW_HDM static void set_one(E& r) {  // R mod p
+#pragma unroll
+        for (int i = 0; i < ROWS; i++) r.w[i] = (uint32_t)(Q::one(i >> 1) >> (32 * (i & 1)));
     }
     LW_HDM static void set_zero(E& r) {
 #pragma unroll
-        for (int i = 0; i < W; i++) r.w[i] = 0;
+        for (int i = 0; i < ROWS; i++) r.w[i] = 0;
     }
     // row k of the value at p[k * ls + off]
     LW_HDM static void load(const int32_t* p, long ls, long off, E& r) {
 #pragma unroll
-        for (int i = 0; i < W; i++)
-            r.w[i] = (uint64_t)(uint32_t)p[(2 * i) * ls + off]
-                     | ((uint64_t)(uint32_t)p[(2 * i + 1) * ls + off] << 32);
+        for (int i = 0; i < ROWS; i++) r.w[i] = (uint32_t)p[i * ls + off];
+    }
+    // the value's limbs contiguous at p, 16-byte aligned (a comb table entry)
+    LW_HDM static void load_entry(const int32_t* p, E& r) {
+#pragma unroll
+        for (int i = 0; i < ROWS; i += 4) lw_load16(p + i, r.w + i);
     }
     LW_HDM static void store(int32_t* p, long ls, long off, const E& a) {
 #pragma unroll
-        for (int i = 0; i < W; i++) {
-            p[(2 * i) * ls + off] = (int32_t)(uint32_t)a.w[i];
-            p[(2 * i + 1) * ls + off] = (int32_t)(uint32_t)(a.w[i] >> 32);
-        }
+        for (int i = 0; i < ROWS; i++) p[i * ls + off] = (int32_t)a.w[i];
     }
 };
 
@@ -143,6 +156,10 @@ struct LwFp2 {
     LW_HDM static void load(const int32_t* p, long ls, long off, E& r) {
         B::load(p, ls, off, r.c0);
         B::load(p + B::ROWS * ls, ls, off, r.c1);
+    }
+    LW_HDM static void load_entry(const int32_t* p, E& r) {
+        B::load_entry(p, r.c0);
+        B::load_entry(p + B::ROWS, r.c1);
     }
     LW_HDM static void store(int32_t* p, long ls, long off, const E& a) {
         B::store(p, ls, off, a.c0);
@@ -339,30 +356,141 @@ LW_HD void lw_curve_op_lane(int op, const LwPoints& a, const LwPoints& b, int32_
     lw_store_point<G>(out, n, i, r);
 }
 
+// The fixed-base comb (kernel 10's comb entry): lane i is [s_i] G as the
+// sum over windows w of table entry w 2^c + id_w(s_i), where entry
+// w 2^c + d is d 2^(c w) G, affine.  The table is entry-major: entry e's x
+// limbs, then its y limbs, contiguous (2 ROWS int32, a multiple of 16
+// bytes, read with 16-byte loads), and inf[e] = 1 where the entry is the
+// point at infinity (its x and y hold the neutral point's, 1 and 1).  The
+// scalars are the (digit_rows, n) int64 16-bit digits, from which a lane
+// takes window w's id, bits [w c, (w + 1) c), itself.  As C arguments, 7
+// longs: table, inf, digits, the digits' row stride, c, windows,
+// digit_rows.
+struct LwComb {
+    const int32_t* table;
+    const uint8_t* inf;
+    const int64_t* digits;
+    long ls;
+    int c, windows, digit_rows;
+};
+
+LW_HD LwComb lw_comb_arg(const long* d) {
+    LwComb a;
+    a.table = (const int32_t*)(uintptr_t)d[0];
+    a.inf = (const uint8_t*)(uintptr_t)d[1];
+    a.digits = (const int64_t*)(uintptr_t)d[2];
+    a.ls = d[3];
+    a.c = (int)d[4];
+    a.windows = (int)d[5];
+    a.digit_rows = (int)d[6];
+    return a;
+}
+
+// window w's id of lane i (curves/msm.py's window_ids)
+LW_HD long lw_comb_id(const LwComb& a, int w, long i) {
+    const int bit = w * a.c, k = bit >> 4, s = bit & 15;
+    long v = (long)(a.digits[k * a.ls + i] >> s);
+    if (k + 1 < a.digit_rows) v |= (long)(a.digits[(k + 1) * a.ls + i] << (16 - s));
+    return v & ((1L << a.c) - 1);
+}
+
+template <class G>
+LW_HD void lw_comb_entry(const LwComb& a, long e, typename G::P& r) {
+    const int32_t* p = a.table + e * (2 * G::ROWS);
+    G::F::load_entry(p, r.x);
+    G::F::load_entry(p + G::ROWS, r.y);
+    if (a.inf[e]) G::F::set_zero(r.z);
+    else G::F::set_one(r.z);
+}
+
+// The comb's work on lane i: window 0's entry, then one complete mixed
+// addition a window in registers (fixed_base_multiples' order and special
+// cases), the sum stored once
+template <class G>
+LW_HD void lw_curve_comb_lane(const LwComb& a, int32_t* const out[3], long n, long i) {
+    typename G::P acc, q;
+    lw_comb_entry<G>(a, lw_comb_id(a, 0, i), acc);
+    for (int w = 1; w < a.windows; w++) {
+        lw_comb_entry<G>(a, ((long)w << a.c) + lw_comb_id(a, w, i), q);
+        G::add_mixed(acc, q, acc);
+    }
+    lw_store_point<G>(out, n, i, acc);
+}
+
+// Threads a block and the launch bound's least blocks an SM of kernel 10's
+// instances, both entries, in every group: 128 threads with no bound.
+// tools/sweep_curve.py (PERF.md) found no shape that ran the comb,
+// the entry's work on the main path, more than a few percent faster
+// (BN254 G1 and BLS12-377 G1 at 256 threads, and those lost on the op
+// entry); a lower register cap spills in the G2 groups and was slower
+enum { LW_CURVE_THREADS = 128, LW_CURVE_MIN_BLOCKS = 1 };
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
 // Kernel 10 (curve.cu): one group op over n lanes, one thread a lane
-template <class G>
-__global__ void curve_point_op_kernel(int op, LwPoints a, LwPoints b, int32_t* ox, int32_t* oy,
-                                      int32_t* oz, long n) {
-    const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+template <class G, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    curve_point_op_kernel(int op, LwPoints a, LwPoints b, int32_t* ox, int32_t* oy, int32_t* oz,
+                          long n) {
+    const long i = (long)blockIdx.x * THREADS + threadIdx.x;
     if (i >= n) return;
     int32_t* const out[3] = {ox, oy, oz};
     lw_curve_op_lane<G>(op, a, b, out, n, i);
 }
 
-template <class G>
+// Kernel 10's comb entry: the fixed-base comb over n lanes, one thread a lane
+template <class G, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    curve_comb_kernel(LwComb a, int32_t* ox, int32_t* oy, int32_t* oz, long n) {
+    const long i = (long)blockIdx.x * THREADS + threadIdx.x;
+    if (i >= n) return;
+    int32_t* const out[3] = {ox, oy, oz};
+    lw_curve_comb_lane<G>(a, out, n, i);
+}
+
+template <class G, int THREADS = LW_CURVE_THREADS, int MIN_BLOCKS = LW_CURVE_MIN_BLOCKS>
 int lw_curve_op_run(int op, const LwPoints& a, const LwPoints& b, int32_t* ox, int32_t* oy,
                     int32_t* oz, long n, cudaStream_t stream) {
-    const int threads = 128;
-    const long blocks = (n + threads - 1) / threads;
-    curve_point_op_kernel<G><<<blocks, threads, 0, stream>>>(op, a, b, ox, oy, oz, n);
+    const long blocks = (n + THREADS - 1) / THREADS;
+    curve_point_op_kernel<G, THREADS, MIN_BLOCKS>
+        <<<blocks, THREADS, 0, stream>>>(op, a, b, ox, oy, oz, n);
     return (int)cudaGetLastError();
+}
+
+template <class G, int THREADS = LW_CURVE_THREADS, int MIN_BLOCKS = LW_CURVE_MIN_BLOCKS>
+int lw_curve_comb_run(const LwComb& a, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                      cudaStream_t stream) {
+    const long blocks = (n + THREADS - 1) / THREADS;
+    curve_comb_kernel<G, THREADS, MIN_BLOCKS><<<blocks, THREADS, 0, stream>>>(a, ox, oy, oz, n);
+    return (int)cudaGetLastError();
+}
+
+// kind 0 (the op entry) or 1 (the comb entry): out[0] threads a block,
+// out[1] blocks an SM at once (the occupancy calculator), out[2] registers
+// a thread, out[3] local memory bytes a thread (spills and stack)
+template <class G, int THREADS = LW_CURVE_THREADS, int MIN_BLOCKS = LW_CURVE_MIN_BLOCKS>
+int lw_curve_info_run(int kind, long* out) {
+    const void* fn = kind == 0 ? (const void*)curve_point_op_kernel<G, THREADS, MIN_BLOCKS>
+                               : (const void*)curve_comb_kernel<G, THREADS, MIN_BLOCKS>;
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = THREADS;
+    out[1] = blocks;
+    out[2] = attr.numRegs;
+    out[3] = (long)attr.localSizeBytes;
+    return 0;
 }
 
 // kernel 10's G2 instances, built in a translation unit of their own
 // (curve_g2.cu) beside the G1 instances (curve.cu)
 int lw_curve_op_g2(int group, int op, const LwPoints& a, const LwPoints& b, int32_t* ox,
                    int32_t* oy, int32_t* oz, long n, cudaStream_t stream);
+int lw_curve_comb_g2(int group, const LwComb& a, int32_t* ox, int32_t* oy, int32_t* oz, long n,
+                     cudaStream_t stream);
+int lw_curve_info_g2(int group, int kind, long* out);
 #endif

@@ -1,10 +1,11 @@
 // Montgomery arithmetic over the dense moduli of dense.cuh, written for the
 // card: 2 W 32-bit limbs in the card's carry-chain multiply-adds.  Kernel 1
-// over BN254 Fr and BLS12-377 Fr (ntt.cu's dense entry, ntt_dense.cuh) and
+// over BN254 Fr and BLS12-377 Fr (ntt.cu's dense entry, ntt_dense.cuh),
 // kernels 8 and 9 over the four dense fields (dense_field.cu,
-// dense_inverse.cu) run on it; kernels 10 and 11 keep dense.cuh's CIOS on
-// 64-bit words, which stays the reference that this product is held
-// against (tools/dense_mul.py, on the card and with g++).
+// dense_inverse.cu) and the curve kernels 10 and 11 (curve.cuh's group
+// law) run on it; dense.cuh's CIOS on 64-bit words stays the reference
+// that this product is held against (tools/dense_mul.py, on the card and
+// with g++).
 //
 // Why not dense.cuh's product on the card: sm_90 has no 64-bit multiplier,
 // so each of its 32 64x64-bit products is several 32-bit multiply-adds and

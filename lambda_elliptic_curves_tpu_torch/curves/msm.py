@@ -37,8 +37,9 @@ scalars, as Groth16's setup and KZG's ``insecure_setup`` need (the JAX
 package runs one host scalar multiplication a point there,
 ``provers/groth16/setup.py:65-96``, ``commitments/kzg.py:32``): a comb
 over ``FIXED_BASE_WINDOW``-bit windows, whose table d 2^(c w) G is built
-once on the host, so each lane takes one mixed addition a window (32 for a
-253-bit order) and no doubling.
+once on the host, so each lane takes one mixed addition a window (31 for
+the 32 windows of a 253- or 254-bit order) and no doubling; on the card
+the whole comb is one launch of kernel 10's comb entry.
 """
 
 from __future__ import annotations
@@ -74,11 +75,14 @@ BUCKET_TILE = 128
 TILE_MAX = 128
 
 #: blocks of kernel 11 (128 threads) that an H100's 132 SMs hold at once,
-#: by curve group (curve.cuh's LW_CURVE_*): 3 an SM for BN254 G1 (138 and
-#: 168 registers a thread), 2 for the others (182-255), as the occupancy
-#: calculator gives them (``chip_smoke.py`` phase 2m).  The accumulate's
-#: first leaves grow until the windows' tiles take one such wave: one wave
-#: of longer walks ends sooner than two or three of short ones
+#: by curve group (curve.cuh's LW_CURVE_*), as the occupancy calculator
+#: gave them when the tiles were sized: 3 an SM for BN254 G1 (138 and 168
+#: registers a thread), 2 for the others (182-255).  On dense32.cuh's
+#: product BN254 G1 holds 4 and BLS12-377 G1 3 (119-168 registers;
+#: ``chip_smoke.py`` phase 2m), which these waves do not use yet.  The
+#: accumulate's first leaves grow until the windows' tiles take one such
+#: wave: one wave of longer walks ends sooner than two or three of short
+#: ones
 WAVE_BLOCKS = {0: 3 * 132, 1: 2 * 132, 2: 2 * 132, 3: 2 * 132}
 
 #: bits of a window of ``fixed_base_multiples``: a table of 2^c points a
@@ -542,9 +546,12 @@ _comb_tables: dict = {}
 
 
 def _comb_table(ops, base, c: int, windows: int, device):
-    """(x, y, z) of shape (L, windows * 2^c): entry w 2^c + d is
-    d 2^(c w) base, affine (infinity at d = 0), built with host point
-    arithmetic; cached per (curve, base, c, windows, device)."""
+    """The comb's table, built with host point arithmetic and cached per
+    (curve, base, c, windows, device): entry w 2^c + d is d 2^(c w) base,
+    affine (infinity at d = 0).  Returned as (x, y, z) planes of shape (L,
+    windows * 2^c), the plain version's, and entry-major for kernel 10's
+    comb entry: an (entries, 2 L) int32 tensor of each entry's x limbs then
+    its y limbs, and an (entries,) uint8 tensor, 1 at infinity."""
     if hasattr(base, "to_affine"):  # G1
         aff = base.to_affine()
         coords = (aff.x, aff.y, aff.z)
@@ -562,9 +569,34 @@ def _comb_table(ops, base, c: int, windows: int, device):
         points += row
         for _ in range(c):
             step = step.double()
-    table = ops.from_host(points, device)
-    _comb_tables[key] = table
-    return table
+    planes = ops.from_host(points, device)
+    entries = torch.cat(planes[:2]).T.contiguous()
+    inf = (planes[2] == 0).all(dim=0).to(torch.uint8)
+    _comb_tables[key] = (planes, entries, inf)
+    return _comb_tables[key]
+
+
+def comb_args(table, digits: torch.Tensor, c: int, windows: int):
+    """Kernel 10's comb entry's 7 arguments (``csrc/curve.cuh``'s
+    ``LwComb``) over ``table`` (``_comb_table``) and ``digits``, the
+    scalars' (digit rows, n) 16-bit digits, from which a lane takes its
+    window ids itself."""
+    _, entries, inf = table
+    return (ctypes.c_long * 7)(entries.data_ptr(), inf.data_ptr(), digits.data_ptr(),
+                               digits.stride(0), c, windows, digits.shape[0])
+
+
+def _comb_native(ops, call, table, digits: torch.Tensor, c: int, windows: int):
+    """Kernel 10's comb entry over the lanes of ``digits``, the window ids
+    taken from the digits: its arguments handed to ``call(args, outputs,
+    n)``, on the card one launch; three contiguous (L, n) planes."""
+    n, dev = digits.shape[-1], digits.device
+    digits = digits.contiguous()
+    out = tuple(torch.empty((ops.f.num_limbs, n), dtype=torch.int32, device=dev)
+                for _ in range(3))
+    if n:
+        call(comb_args(table, digits, c, windows), out, n)
+    return out
 
 
 def fixed_base_multiples(curve, digits: torch.Tensor, base, ops=None,
@@ -572,13 +604,21 @@ def fixed_base_multiples(curve, digits: torch.Tensor, base, ops=None,
     """[s_i] base for every lane i of ``digits`` (``scalars_to_digits``),
     ``base`` a host point: lane i sums the table entries of its scalar's
     c-bit windows, one complete mixed addition a window; (x, y, z) of the
-    lanes' shape."""
+    lanes' shape.  On the card one launch of kernel 10's comb entry; on
+    CPU tensors, or with a plain group law, the plain version: a window
+    at a time, the entries gathered and added over every lane."""
     ops = ops or make_ops(curve)
     n_windows = -(-_scalar_bits(curve) // window)
     table = _comb_table(ops, base, window, n_windows, digits.device)
+    group = ops.kernel_group(table[0])
+    if group is not None:
+        def call(args, out, n):
+            native.launch(ops.counter("curve_op"), "lw_curve_comb", group, args,
+                          *(o.data_ptr() for o in out), n)
+        return _comb_native(ops, call, table, digits, window, n_windows)
     ids = window_ids(digits, window, n_windows)
     acc = None
     for w in range(n_windows):
-        pt = tuple(t[:, ids[w] + (w << window)] for t in table)
+        pt = tuple(t[:, ids[w] + (w << window)] for t in table[0])
         acc = pt if acc is None else ops.add_mixed(acc, pt)
     return acc

@@ -49,8 +49,8 @@ COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
 #: (``csrc/ntt.cu``); ``dense_field_bls12_377``, ``dense_program_bls12_377``,
 #: ``dense_inv_bls12_377`` and
 #: ``dense_ntt_bls12_377`` the same kernels' BLS12-377 instances (Fq on six
-#: words, Fr on four); ``curve_op`` BN254's G1 and G2 group ops
-#: (``csrc/curve.cu``), ``msm_bucket`` their Pippenger bucket phase
+#: words, Fr on four); ``curve_op`` BN254's G1 and G2 group ops and
+#: fixed-base combs (``csrc/curve.cu``), ``msm_bucket`` their Pippenger bucket phase
 #: (``csrc/msm_bucket.cu``), and ``curve_op_bls12_377`` and
 #: ``msm_bucket_bls12_377`` BLS12-377's
 launches: dict = {"field": 0, "field_pow": 0, "field_inv": 0, "ntt": 0, "keccak": 0,
@@ -201,6 +201,8 @@ def cuda_lib():
                 "lw_dense_ntt_passes": [I, P, P, P, P, L, I, I, P, P, I, P],
                 "lw_dense_ntt_info": [I, I, I, P],
                 "lw_curve_op": [I, I, P, P, P, P, L, P],
+                "lw_curve_comb": [I, P, P, P, P, L, P],
+                "lw_curve_info": [I, I, P],
                 "lw_msm_bucket_accumulate": [I, I, P, P],
                 "lw_msm_bucket_reduce": [I, P, P],
                 "lw_msm_bucket_occupancy": [I, I, I, P],

@@ -149,3 +149,43 @@ def random_small(limbs: int, p: int, shape: tuple, gen):
                           dtype=torch.int64)
         x[1] %= (1 << 32) - 1
     return x.to(torch.int32)
+
+
+def random_dense(f, n: int, gen):
+    """``(f.num_limbs, n)`` int32 limbs of canonical values of the dense
+    field ``f`` (both components of an Fp2 value, whose field has a
+    ``prime``), drawn from ``gen`` on its device: each base value's top limb
+    below p's."""
+    import torch
+
+    prime = getattr(f, "prime", f)
+    L = prime.num_limbs
+    x = torch.randint(0, 1 << 32, (f.num_limbs, n), generator=gen, device=gen.device,
+                      dtype=torch.int64)
+    for k in range(L - 1, f.num_limbs, L):
+        x[k] %= prime.p >> (32 * (L - 1))
+    return x.to(torch.int32)
+
+
+def random_digits(bits: int, n: int, gen, digit_bits: int = 16):
+    """``(ceil(bits / digit_bits), n)`` int64 digits of n random scalars
+    below 2^bits, drawn from ``gen`` on its device (the layout of the port's
+    ``curves.msm.scalars_to_digits``)."""
+    import torch
+
+    rows = -(-bits // digit_bits)
+    d = torch.randint(0, 1 << digit_bits, (rows, n), generator=gen, device=gen.device,
+                      dtype=torch.int64)
+    d[-1] &= (1 << (bits - digit_bits * (rows - 1))) - 1
+    return d
+
+
+def digest(tensors) -> str:
+    """A short hash of the tensors' bytes: outputs compared across
+    processes and checkouts."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]

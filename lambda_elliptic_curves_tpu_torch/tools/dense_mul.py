@@ -1,7 +1,8 @@
 """The dense Montgomery products side by side on one NVIDIA card: dense.cuh's
-CIOS on 64-bit words (kernels 8-11, and the reference) and dense32.cuh's
-carry-chain product (kernel 1 over BN254 Fr and BLS12-377 Fr), over BN254
-Fr, BLS12-377 Fr (four words) and BLS12-377 Fq (six).
+CIOS on 64-bit words (the reference) and dense32.cuh's carry-chain product
+(kernel 1 over BN254 Fr and BLS12-377 Fr, kernels 8 and 9, and the curve
+kernels 10 and 11), over BN254 Fr, BLS12-377 Fr (four words) and BLS12-377
+Fq (six).
 
     python3 -m lambda_elliptic_curves_tpu_torch.tools.dense_mul
 

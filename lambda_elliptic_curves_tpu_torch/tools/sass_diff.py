@@ -6,7 +6,9 @@ with the port's own ``nvcc`` flags (every compile at once), ``cuobjdump
 and every kernel that both checkouts have is compared instruction by
 instruction (addresses, encodings and branch targets left out).  A kernel
 name's parameter types are normalised so that a type that became a template
-(``LwDnExponent`` -> ``LwDnExponent<8>``) still pairs with its parent.
+(``LwDnExponent`` -> ``LwDnExponent<8>``), or a kernel that took more
+template arguments (``curve_point_op_kernel<G>`` -> ``<G, 256, 1>``), still
+pairs with its parent.
 
     python3 lambda_elliptic_curves_tpu_torch/tools/sass_diff.py --tree DIR [--against DIR]
         [SOURCE ...]
@@ -44,7 +46,9 @@ def _tool(name: str) -> str:
 
 
 def _normalise(name: str) -> str:
-    return re.sub(r"LwDnExponentI.*?EE(?=i$)", "LwDnExponent", name)
+    name = re.sub(r"LwDnExponentI.*?EE(?=i$)", "LwDnExponent", name)
+    # kernel 10's op entry took its launch shape as template arguments
+    return re.sub(r"(curve_point_op_kernelI.*?)Li\d+ELi\d+E(?=Evi8LwPoints)", r"\1", name)
 
 
 def compile_cubin(tree: str, source: str, out_dir: str, tag: str):

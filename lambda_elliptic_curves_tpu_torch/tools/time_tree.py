@@ -31,11 +31,24 @@ otherwise.  The groups, run in this order whatever order they are given in
   (a^(p-2) on the card, zeros to zero); one warm prove at 2^16 and at 2^20
   rows under ``torch.profiler``: batch inversion's device ms and launches
   per prove (the launch counters and the trace), and the device busy ms;
+* ``curve``: kernel 10 (``curves.msm``'s group law and comb) for BN254
+  G1 and G2 and BLS12-377 G1 and G2: the mixed addition at 17 x 2^16 and
+  2^16 lanes, the C entry ``lw_curve_op`` alone in a loop on outputs
+  allocated once (its signature is the same in every version since slice
+  10) and whole calls (``add_mixed``); the fixed-base comb
+  (``fixed_base_multiples`` over random scalars, its table built and
+  cached first) at the main path's shapes, 65,542 BN254 G1 lanes (the
+  Plonk SRS), 5 x 2^16 BLS12-377 G1 and 2^16 + 6 G2 lanes (the Groth16
+  setup's combs) and BN254 G2 at 2^16: whole calls with their kernel-10
+  launches, and for a tree with the comb entry (``lw_curve_comb``) its
+  launch alone, each output held against the first tree's digest of it
+  (the same seeds, so the same points in every tree);
 * ``bucket``: Pippenger's bucket phase (kernel 11, ``curves.msm``'s
   ``bucket_sums`` and ``weighted_bucket_sums``) over the ids of 17 windows
   of 2^16 random scalars at c = 15 (an MSM of 2^16 points) and random
   affine points, for BN254 G1, BLS12-377 G1 and BLS12-377 G2: the whole
-  phase, the accumulate and the reduce alone, and its launches; then a
+  phase, the accumulate and the reduce alone, its launches, and its
+  blocks an SM (``lw_msm_bucket_occupancy``, all four groups); then a
   Groth16 prove over BLS12-377 of a chain of 2^16 constraints (setup seed
   9, prove seeds 10 and 11), the second, warm, under ``torch.profiler``:
   kernel 11's device ms and launches, the device busy ms and the wall ms;
@@ -93,11 +106,14 @@ import sys
 import time
 
 if __package__:
-    from ._timing import cache_bytes, cuda_ms, profile, random_field, random_small, smi
+    from ._timing import (cache_bytes, cuda_ms, digest, profile, random_dense, random_digits,
+                          random_field, random_small, smi)
 else:  # run as a script: this file's folder heads sys.path, whatever DIR holds
-    from _timing import cache_bytes, cuda_ms, profile, random_field, random_small, smi
+    from _timing import (cache_bytes, cuda_ms, digest, profile, random_dense, random_digits,
+                         random_field, random_small, smi)
 
-GROUPS = ("prove", "fft", "field", "inverse", "bucket", "plonk", "dense_fft", "small", "dense")
+GROUPS = ("prove", "fft", "field", "inverse", "curve", "bucket", "plonk", "dense_fft", "small",
+          "dense")
 
 
 class Failed(Exception):
@@ -232,6 +248,64 @@ def main() -> int:
                 "field_pow_launches": native.launches["field_pow"],
                 "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
 
+    def run_curve():
+        import ctypes
+
+        from lambda_elliptic_curves_tpu_torch.curves import msm as M
+        from lambda_elliptic_curves_tpu_torch.curves.twists import bls12_377_twist, bn254_twist
+        from lambda_elliptic_curves_tpu_torch.curves.zoo import BLS12377Curve, BN254Curve
+
+        lib = native.cuda_lib()
+        comb_lanes = {"bn254_g1": 65542, "bn254_g2": 1 << 16, "bls12_377_g1": 5 << 16,
+                      "bls12_377_g2": (1 << 16) + 6}
+
+        out = rec["curve"] = {}
+        for name, curve in (("bn254_g1", BN254Curve), ("bn254_g2", bn254_twist()),
+                            ("bls12_377_g1", BLS12377Curve), ("bls12_377_g2", bls12_377_twist())):
+            ops, g = M.make_ops(curve), torch.Generator(device=dev).manual_seed(41)
+            fd, gid, r = ops.f, curve.kernel_group, out.setdefault(name, {})
+            for n in (17 << 16, 1 << 16):
+                a = (random_dense(fd, n, g), random_dense(fd, n, g), random_dense(fd, n, g))
+                b = (random_dense(fd, n, g), random_dense(fd, n, g), fd.ones((n,), dev))
+                arg_a, keep_a = ops.points_arg(a, (n,), n)
+                arg_b, keep_b = ops.points_arg(b, (n,), n)
+                args = (ctypes.c_long * 18)(*(arg_a + arg_b))
+                o = tuple(torch.empty((fd.num_limbs, n), dtype=torch.int32, device=dev)
+                          for _ in range(3))
+
+                def launch():
+                    rc = lib.lw_curve_op(gid, 1, args, *(x.data_ptr() for x in o), n,
+                                         torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise Failed(f"{name}: lw_curve_op: CUDA error {rc}")
+                r[f"add_mixed_{n}_ms"] = cuda_ms(launch, 10)
+                r[f"add_mixed_{n}_whole_ms"] = cuda_ms(lambda: ops.add_mixed(a, b), 10)
+                if n == 1 << 16:
+                    r["add_mixed_digest"] = digest(o)
+                del a, b, o, keep_a, keep_b
+            n, bits = comb_lanes[name], curve.order.bit_length()
+            digits = random_digits(bits, n, g, M.DIGIT_BITS)
+            base = curve.generator()
+            M.fixed_base_multiples(curve, digits[:, :1], base, ops)  # the table, cached
+            torch.cuda.synchronize()
+            counter = ops.counter("curve_op")
+            native.launches[counter] = 0
+            got = M.fixed_base_multiples(curve, digits, base, ops)
+            torch.cuda.synchronize()
+            r.update(comb_lanes=n, comb_launches=native.launches[counter],
+                     comb_digest=digest(got),
+                     comb_whole_ms=cuda_ms(lambda: M.fixed_base_multiples(curve, digits, base,
+                                                                         ops), 5))
+            if hasattr(lib, "lw_curve_comb"):
+                windows = -(-bits // M.FIXED_BASE_WINDOW)
+                table = M._comb_table(ops, base, M.FIXED_BASE_WINDOW, windows, dev)
+                args = M.comb_args(table, digits, M.FIXED_BASE_WINDOW, windows)
+                r["comb_ms"] = cuda_ms(lambda: lib.lw_curve_comb(
+                    gid, args, *(x.data_ptr() for x in got), n,
+                    torch.cuda.current_stream().cuda_stream), 10)
+            del digits, got
+            torch.cuda.empty_cache()
+
     def kernel_11(stats):
         k11 = [v for k, v in stats["by_kernel"].items() if "msm_bucket" in k]
         return {"kernel_11_device_ms": sum(v["ms"] for v in k11),
@@ -239,6 +313,8 @@ def main() -> int:
                 "device_busy_ms": stats["device_busy_ms"], "wall_ms": stats["wall_ms"]}
 
     def run_bucket():
+        import ctypes
+
         import numpy as np
         from lambda_elliptic_curves_tpu_torch.curves import msm as M
         from lambda_elliptic_curves_tpu_torch.curves.twists import bls12_377_twist
@@ -271,6 +347,14 @@ def main() -> int:
                 "launches": launches}
             del pts, table
             torch.cuda.empty_cache()
+        lib = native.cuda_lib()
+        for gid, name in enumerate(("bn254_g1", "bn254_g2", "bls12_377_g1", "bls12_377_g2")):
+            occupancy = rec.setdefault("bucket_occupancy", {})[name] = {}
+            for kind, what in enumerate(("accumulate, mixed", "accumulate", "reduce")):
+                res = (ctypes.c_long * 2)()
+                if lib.lw_msm_bucket_occupancy(gid, kind, M.BUCKET_TILE, res) != 0:
+                    raise Failed(f"{name} {what}: the occupancy query failed")
+                occupancy[what] = {"blocks_per_sm": res[0], "shared_bytes": res[1]}
         _, stats = profile(groth16_prover(), top=40)
         rec["groth16_2^16_warm"] = kernel_11(stats)
 
@@ -603,7 +687,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     runs = {"prove": run_prove, "fft": run_fft, "field": run_field, "inverse": run_inverse,
-            "bucket": run_bucket, "plonk": run_plonk, "dense_fft": run_dense_fft,
+            "curve": run_curve, "bucket": run_bucket, "plonk": run_plonk, "dense_fft": run_dense_fft,
             "small": run_small, "dense": run_dense}
     try:
         for group in GROUPS:

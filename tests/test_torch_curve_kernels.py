@@ -3,16 +3,21 @@ bitwise against their plain versions, for the four curve groups (BN254 G1
 and G2, BLS12-377 G1 and G2).
 
 ``csrc/curve.cuh``'s group law runs lane by lane as kernel 10 runs it
-(``lw_curve_op_lane``), and ``csrc/msm_bucket.cuh``'s blocks block by block
-(``lw_bucket_*_block_seq``: every thread's step before the next step, as
-kernel 11's barriers order them, the tile in host memory filled with
-garbage first), driven level by level by the port's own level loop
-(``curves/msm.py``).  Both are plain C++ (no carry-flag
-instructions), so the host build computes what the card computes.  The
-plain versions are :class:`JacobianOps` / :class:`TwistJacobianOps`'s ops
-on CPU tensors and the bucket phase's PyTorch version.  Inputs: points k G
-from seeded numpy scalars, in Jacobian form with random z.  Tolerance:
-bitwise equality.  Skips without ``g++``.
+(``lw_curve_op_lane``; the comb entry's ``lw_curve_comb_lane``, driven by
+``curves/msm.py``'s ``_comb_native``), and ``csrc/msm_bucket.cuh``'s
+blocks block by block (``lw_bucket_*_block_seq``: every thread's step
+before the next step, as kernel 11's barriers order them, the tile in host
+memory filled with garbage first), driven level by level by the port's
+own level loop (``curves/msm.py``).  The group law runs on
+``csrc/dense32.cuh``'s product and sums, whose carry-flag instructions
+``csrc/mont.cuh`` emulates on the host, so the host build computes what
+the card computes (the card's own check, ``tests/test_torch_cuda.py``,
+is the one that shows the card's carry flag doing the same).  The plain
+versions are :class:`JacobianOps` / :class:`TwistJacobianOps`'s ops on
+CPU tensors, the bucket phase's PyTorch version and the comb's loop of
+mixed additions.  Inputs: points k G from seeded numpy scalars, in
+Jacobian form with random z.  Tolerance: bitwise equality.  Skips without
+``g++``.
 """
 
 import ctypes
@@ -45,6 +50,13 @@ static void lanes(int op, const long* args, int32_t* ox, int32_t* oy, int32_t* o
     const LwPoints a = lw_points_arg(args), b = lw_points_arg(args + 9);
     int32_t* const out[3] = {ox, oy, oz};
     for (long i = 0; i < n; i++) lw_curve_op_lane<G>(op, a, b, out, n, i);
+}
+
+template <class G>
+static void comb_lanes(const long* args, int32_t* ox, int32_t* oy, int32_t* oz, long n) {
+    const LwComb a = lw_comb_arg(args);
+    int32_t* const out[3] = {ox, oy, oz};
+    for (long i = 0; i < n; i++) lw_curve_comb_lane<G>(a, out, n, i);
 }
 
 static void* tile_mem(size_t bytes) {  // unset shared memory: garbage
@@ -84,6 +96,16 @@ extern "C" void curve_op(int group, int op, const long* args, int32_t* ox, int32
     }
 }
 
+extern "C" void curve_comb(int group, const long* args, int32_t* ox, int32_t* oy, int32_t* oz,
+                           long n) {
+    switch (group) {
+        case LW_CURVE_BN254_G1: comb_lanes<LwBn254G1>(args, ox, oy, oz, n); break;
+        case LW_CURVE_BN254_G2: comb_lanes<LwBn254G2>(args, ox, oy, oz, n); break;
+        case LW_CURVE_BLS12_377_G1: comb_lanes<LwBls12377G1>(args, ox, oy, oz, n); break;
+        default: comb_lanes<LwBls12377G2>(args, ox, oy, oz, n); break;
+    }
+}
+
 extern "C" void bucket_accumulate(int group, int mixed, const long* args) {
     switch (group) {
         case LW_CURVE_BN254_G1: accumulate<LwBn254G1>(mixed, args); break;
@@ -119,9 +141,10 @@ def host(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     lib.curve_op.argtypes = [I, I, P, P, P, P, L]
+    lib.curve_comb.argtypes = [I, P, P, P, P, L]
     lib.bucket_accumulate.argtypes = [I, I, P]
     lib.bucket_reduce.argtypes = [I, P]
-    for fn in (lib.curve_op, lib.bucket_accumulate, lib.bucket_reduce):
+    for fn in (lib.curve_op, lib.curve_comb, lib.bucket_accumulate, lib.bucket_reduce):
         fn.restype = None
     return lib
 
@@ -232,6 +255,43 @@ def test_host_curve_op_broadcast_operand(host, group):
     assert _equal(got, ops.add_plain(g, a))
     gen = ops.curve.generator()
     assert ops.to_host(got) == [gen + q for q in ops.to_host(a)]
+
+
+def _comb_scalars(group, seed, n):
+    """n scalars: 0, 1, r - 1, scalars with zero windows (a power of two,
+    one set byte, every other byte zero), a run of equal scalars, then
+    random ones from the seed."""
+    r = GROUPS[group].order
+    rng = np.random.default_rng(seed)
+    edge = [0, 1, r - 1, 1 << 252, 0xFF << 128, int("00FF" * 15, 16), 5 << 200]
+    same = [int.from_bytes(rng.bytes(32), "little") % r] * 8
+    rand = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(n - len(edge) - 8)]
+    return edge + same + rand
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+@pytest.mark.parametrize("c", [4, 8])
+def test_host_comb_equals_plain(host, group, c):
+    """Kernel 10's comb entry, lane by lane through ``_comb_native``, against
+    the plain comb (``fixed_base_multiples`` on CPU tensors: a window at a
+    time, one mixed addition over every lane), bitwise, the window ids
+    taken from the digits in the lane; 64 lanes of scalars 0, 1, r - 1,
+    with zero windows, equal and random, at 4- and 8-bit windows.  Its
+    points are the host's scalar multiplications."""
+    curve = GROUPS[group]
+    ops = M.make_ops(curve)
+    scalars = _comb_scalars(group, 11 + c, 64)
+    digits = M.scalars_to_digits(curve, scalars, "cpu")
+    want = M.fixed_base_multiples(curve, digits, curve.generator(), ops, window=c)
+    windows = -(-curve.order.bit_length() // c)
+    table = M._comb_table(ops, curve.generator(), c, windows, "cpu")
+    gid = curve.kernel_group
+    got = M._comb_native(ops, lambda args, out, n: host.curve_comb(
+        gid, args, *(o.data_ptr() for o in out), n), table, digits, c, windows)
+    assert _equal(got, want)
+    g = curve.generator()
+    mul = g.mul if hasattr(g, "mul") else g.operate_with_self
+    assert ops.to_host(tuple(x[:, :12] for x in want)) == [mul(k) for k in scalars[:12]]
 
 
 def _ids(seed, nbuckets, S):
